@@ -1,0 +1,24 @@
+"""LoRa PHY on PyTorch and CUDA: the port of the TPU-native JAX package.
+
+A PyTorch re-implementation of ``lora_sdr_lightweight_standalone_library_
+clean_tpu`` for one NVIDIA H100, kept beside it with the same layout
+(``utils/``, ``ops/``, ``models/``) and function names.  It imports torch
+and numpy and never jax.  The device of the input decides the path: CPU
+tensors run plain PyTorch; CUDA tensors run the hand-written Hopper
+kernels in ``csrc/`` (built by ``utils/cuda_build.py`` at first use) or
+raise ``NotImplementedError`` where no kernel is ported yet.
+
+This slice covers the packet pipeline
+``encode -> modulate_dechirped -> demodulate_tones -> decode``.
+"""
+from .utils.config import (LoraParams, Window, load_profiles,
+                           params_from_profile, params_from_reference,
+                           STOCK_PROFILES)
+from .utils import errors
+from .models.modem import (
+    encode, decode, modulate, modulate_dechirped, estimate_offsets, dechirp,
+    to_complex, from_complex, crc_sx1272, DemodResult, OffsetEstimate,
+)
+from .models.tones import demodulate_tones
+
+__version__ = "0.1.0"

@@ -1,0 +1,438 @@
+"""LoRa modem pipeline, main-path part: encode/modulate/estimate/decode.
+
+PyTorch port of ``lora_sdr_lightweight_standalone_library_clean_tpu/models/
+modem.py`` (reference ``src/phy/phy.cpp``, ``include/lora_phy/phy.hpp``).
+Every function is a plain function on tensors, batched over leading axes
+(packets), with metrics returned as tensors.  IQ is carried as two float32
+planes (re, im) at every public function, as in the JAX package.
+
+The device of the input decides the path.  On a CPU tensor ``modulate`` and
+``modulate_dechirped`` run the plain PyTorch versions; on a CUDA tensor they
+launch the hand-written TX kernel (``ops/cuda_tx.py``) and raise
+``NotImplementedError`` where it does not reach.  The codec, the CFO/timing
+estimator and ``dechirp`` are plain tensor code on either device, as they
+are plain XLA code in the JAX package.
+
+Symbols are int32 tensors (the JAX package's uint16 values; torch's uint16
+type supports too few operations on CUDA), decoded bytes uint8, CRCs int32.
+
+Reference parity map:
+ - ``encode``             -> phy.cpp:58-66  + LoRaEncoder.cpp:6-18
+ - ``decode``             -> phy.cpp:245-261 + LoRaDecoder.cpp:7-21
+ - ``modulate``           -> phy.cpp:68-79  + LoRaMod.cpp:8-43
+ - ``estimate_offsets``   -> phy.cpp:81-148
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import codes
+from ..ops.chirp import _with_sync_prelude, downchirp_ri, modulate_ri
+from ..ops.detect import detect_ri
+from ..utils.config import LoraParams, Window
+from ..utils.errors import InvalidArgumentError
+from ..utils.tensors import device_table, int_tensor
+
+__all__ = [
+    "DemodResult", "OffsetEstimate",
+    "encode", "decode", "crc_sx1272",
+    "modulate", "modulate_dechirped", "estimate_offsets",
+    "window_table", "to_complex", "from_complex", "dechirp",
+]
+
+TWO_PI = np.float32(2.0 * np.pi)
+PI_F = np.float32(np.pi)
+
+
+class OffsetEstimate(NamedTuple):
+    cfo: torch.Tensor          # carrier frequency offset (fraction of bin/N)
+    time_offset: torch.Tensor  # timing offset in oversampled samples
+
+
+class DemodResult(NamedTuple):
+    symbols: torch.Tensor      # (..., S) detected data symbols, int32
+    sync_word: torch.Tensor    # (...,) recovered sync byte, uint8
+    cfo: torch.Tensor
+    time_offset: torch.Tensor
+    power: torch.Tensor        # (..., S+2) per-symbol fundamental power dB
+    power_avg: torch.Tensor    # (..., S+2) per-symbol noise floor dB
+
+
+# ---------------------------------------------------------------------------
+# Codec  (LoRaEncoder.cpp / LoRaDecoder.cpp / phy.cpp:245-261)
+# ---------------------------------------------------------------------------
+
+def encode(payload, params: LoraParams | None = None):
+    """Bytes -> Hamming(8,4) symbols, one codeword per nibble
+    (LoRaEncoder.cpp:6-18).  Batched over leading axes; int32 out."""
+    del params  # sf/cr unused, mirroring LoRaEncoder.cpp:7
+    p = int_tensor(payload, torch.int32)
+    hi = _ham84_encode(p >> 4)
+    lo = _ham84_encode(p & 0xF)
+    sym = torch.stack([hi, lo], dim=-1)
+    return sym.reshape(p.shape[:-1] + (p.shape[-1] * 2,))
+
+
+def _ham84_encode(nib):
+    """Arithmetic SX Hamming(8,4) encode (LoRaCodes.hpp:229-242): the four
+    parity equations as elementwise bit ops."""
+    d0 = nib & 1
+    d1 = (nib >> 1) & 1
+    d2 = (nib >> 2) & 1
+    d3 = (nib >> 3) & 1
+    return ((nib & 0xF)
+            | ((d0 ^ d1 ^ d2) << 4)
+            | ((d1 ^ d2 ^ d3) << 5)
+            | ((d0 ^ d1 ^ d3) << 6)
+            | ((d0 ^ d2 ^ d3) << 7))
+
+
+def _ham84_decode(c):
+    """Arithmetic SX Hamming(8,4) decode with single-bit correction
+    (LoRaCodes.hpp:250-281): syndrome + the four correctable-flip selects
+    as elementwise bit ops."""
+    b0 = c & 1
+    b1 = (c >> 1) & 1
+    b2 = (c >> 2) & 1
+    b3 = (c >> 3) & 1
+    p0 = b0 ^ b1 ^ b2 ^ ((c >> 4) & 1)
+    p1 = b1 ^ b2 ^ b3 ^ ((c >> 5) & 1)
+    p2 = b0 ^ b1 ^ b3 ^ ((c >> 6) & 1)
+    p3 = b0 ^ b2 ^ b3 ^ ((c >> 7) & 1)
+    parity = p0 | (p1 << 1) | (p2 << 2) | (p3 << 3)
+    flip = ((parity == 0xD).to(c.dtype)
+            | ((parity == 0x7).to(c.dtype) << 1)
+            | ((parity == 0xB).to(c.dtype) << 2)
+            | ((parity == 0xE).to(c.dtype) << 3))
+    return (c ^ flip) & 0xF
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_position_tables(n: int) -> np.ndarray:
+    """S[k][b] = the CCITT step map applied k times to byte value b.
+
+    The SX1272 CRC step is GF(2)-linear in (state, byte): byte i of an
+    n-byte message enters the register and then undergoes n-1-i further
+    step applications, so the final CRC is the XOR of per-position table
+    lookups (LoRaCodes.hpp:92-105 semantics, summed in parallel).  Returns
+    (n, 256) uint16 with S[k] = step^k.
+    """
+    tab = codes.crc16_table()
+    s = np.zeros((max(n, 1), 256), np.uint16)
+    s[0] = np.arange(256, dtype=np.uint16)
+    for k in range(1, n):
+        prev = s[k - 1]
+        s[k] = (((prev.astype(np.uint32) << 8) & 0xFFFF)
+                ^ tab[prev >> 8]).astype(np.uint16)
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_bit_matrix(n: int) -> np.ndarray:
+    """(n*8, 16) GF(2) generator matrix of the n-byte SX1272 CRC.
+
+    Row ``k*8 + i`` holds the 16 CRC bits contributed by bit i of message
+    byte k, i.e. ``step^{n-1-k}(1 << i)`` — the step map is GF(2)-linear
+    in the state (LoRaCodes.hpp:69-79), so the whole CRC is one GF(2)
+    matrix-vector product.  float32 for the matmul."""
+    s = _crc_position_tables(n)                       # (n, 256)
+    rows = np.zeros((n * 8, 16), np.float32)
+    j = np.arange(16)
+    for k in range(n):
+        for i in range(8):
+            rows[k * 8 + i] = (int(s[n - 1 - k][1 << i]) >> j) & 1
+    return rows
+
+
+def _bit_weights() -> np.ndarray:
+    return (1 << np.arange(16, dtype=np.int32)).astype(np.int32)
+
+
+def crc_sx1272(data, length: int | None = None):
+    """Batched SX1272 CRC-16 over the last axis (LoRaCodes.hpp:92-105).
+
+    GF(2)-linearity turns the reference's per-byte loop into one float32
+    matmul: message bits (..., n*8) x generator matrix (n*8, 16), reduced
+    mod 2.  Counts stay < 2^24, so float32 is exact (on the card only in
+    full float32, never TF32).  The length-dependent LFSR mask bytes are
+    host constants (codes.crc_mask_pair).  Returns int32 values < 2^16.
+    """
+    d = int_tensor(data, torch.int32)
+    n = d.shape[-1] if length is None else length
+    m0, m1 = codes.crc_mask_pair(n)
+    if n == 0:
+        return torch.full(d.shape[:-1], m0 ^ (m1 << 8), dtype=torch.int32,
+                          device=d.device)
+    shifts = torch.arange(8, dtype=torch.int32, device=d.device)
+    bits = (d[..., :n, None] >> shifts) & 1
+    bits = bits.reshape(d.shape[:-1] + (n * 8,)).to(torch.float32)
+    m = device_table(_crc_bit_matrix, n, device=d.device)
+    acc = torch.matmul(bits, m)
+    crc_bits = acc.to(torch.int32) & 1                       # (..., 16)
+    weights = device_table(_bit_weights, device=d.device)
+    res = torch.sum(crc_bits * weights, dim=-1, dtype=torch.int32)
+    return res ^ (m0 ^ (m1 << 8))
+
+
+def decode(symbols, params: LoraParams | None = None, *,
+           check_crc: bool = True):
+    """Symbol pairs -> bytes via Hamming(8,4) decode, plus CRC verdict
+    (LoRaDecoder.cpp:7-21, phy.cpp:245-261).
+
+    Returns ``(payload, crc_ok)``: uint8 bytes and a bool tensor over the
+    batch axes (False when fewer than 4 bytes decode, phy.cpp:257-258).
+    """
+    del params
+    s = int_tensor(symbols, torch.int32)
+    if s.shape[-1] % 2 != 0:
+        raise InvalidArgumentError(
+            f"symbol count must be even, got {s.shape[-1]}")
+    nib = _ham84_decode(s & 0xFF)
+    hi = nib[..., 0::2] & 0xF
+    lo = nib[..., 1::2] & 0xF
+    payload = ((hi << 4) | lo).to(torch.uint8)
+    k = payload.shape[-1]
+    if not check_crc:
+        return payload, torch.zeros(payload.shape[:-1], dtype=torch.bool,
+                                    device=payload.device)
+    if k >= 4:
+        provided = (payload[..., k - 2].to(torch.int32)
+                    | (payload[..., k - 1].to(torch.int32) << 8))
+        calc = crc_sx1272(payload[..., 2:k - 2])
+        crc_ok = provided == calc
+    else:
+        crc_ok = torch.zeros(payload.shape[:-1], dtype=torch.bool,
+                             device=payload.device)
+    return payload, crc_ok
+
+
+# ---------------------------------------------------------------------------
+# Modulation  (phy.cpp:68-79)
+# ---------------------------------------------------------------------------
+
+def modulate(symbols, params: LoraParams, amplitude: float = 1.0):
+    """Symbols -> IQ planes; sync prelude + phase-continuous up-chirps.
+
+    Returns (re, im) float32 of shape (..., (S+2) * step).  A CUDA input
+    runs the TX kernel (``dechirp=False``), a CPU input the plain forms
+    (``ops/chirp.py::modulate_ri``).
+    """
+    return modulate_ri(symbols, params, amplitude)
+
+
+def modulate_dechirped(symbols, params: LoraParams, amplitude: float = 1.0):
+    """Modulate and dechirp in one pass: the producer chain of the
+    golden-vector / perf pipeline (modulate -> external dechirp,
+    tests/e2e_chain_test.cpp:79-93, tests/performance_test.cpp:112-125).
+
+    Equivalent to ``dechirp(*modulate(...))`` up to last-ULP IQ
+    differences.  The down-chirp multiply folds into the TX tables, so the
+    pre-dechirped stream is written once.  A CUDA input runs the TX kernel
+    (osr == 1, n <= 512; anything else raises ``NotImplementedError``).  A
+    CPU input runs the kernel's plain version where the kernel would apply,
+    else modulate then dechirp.
+    """
+    from ..ops.cuda_tx import tx_supported, tx_tone_synth
+    sym = int_tensor(symbols, torch.int32)
+    if sym.is_cuda or tx_supported(params.n, params.osr):
+        allsyms = _with_sync_prelude(sym, params)
+        return tx_tone_synth(allsyms, params, amplitude, dechirp=True)
+    return dechirp(*modulate(sym, params, amplitude), params)
+
+
+# ---------------------------------------------------------------------------
+# Window tables  (phy.cpp:39-50)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def window_table(n: int, kind: Window) -> np.ndarray | None:
+    if kind == Window.NONE:
+        return None
+    i = np.arange(n, dtype=np.float64)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * i / (n - 1.0))).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Offset estimation  (phy.cpp:81-148 / LoRaDemod.cpp:80-136)
+# ---------------------------------------------------------------------------
+
+def _wrap_pi(d):
+    """Wrap a phase delta into [-pi, pi] (phy.cpp:128-131)."""
+    d = torch.where(d > float(PI_F), d - float(TWO_PI), d)
+    return torch.where(d < -float(PI_F), d + float(TWO_PI), d)
+
+
+def _best_over_osr(det, osr: int, tie_break_idx: bool):
+    """Sequentially select the best oversampling phase t per symbol.
+
+    Mirrors the exact comparison chain: strictly-greater power
+    (phy.cpp:116-123) or, for the legacy path, equal-power lowest-index
+    (LoRaDemod.cpp:102-111).  ``det`` fields have shape (..., osr).
+    """
+    shape = det.power.shape[:-1]
+    dev = det.power.device
+    best_p = torch.full(shape, -1e30, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros(shape, dtype=torch.int32, device=dev)
+    best_f = torch.zeros(shape, dtype=torch.float32, device=dev)
+    best_t = torch.zeros(shape, dtype=torch.int32, device=dev)
+    best_br = torch.zeros(shape, dtype=torch.float32, device=dev)
+    best_bi = torch.zeros(shape, dtype=torch.float32, device=dev)
+    for t in range(osr):
+        p = det.power[..., t]
+        idx = det.index[..., t]
+        better = p > best_p
+        if tie_break_idx:
+            better = better | ((p == best_p) & (idx < best_idx))
+        best_idx = torch.where(better, idx, best_idx)
+        best_f = torch.where(better, det.findex[..., t], best_f)
+        best_t = torch.where(better, torch.full_like(best_t, t), best_t)
+        best_br = torch.where(better, det.bin_re[..., t], best_br)
+        best_bi = torch.where(better, det.bin_im[..., t], best_bi)
+        best_p = torch.where(better, p, best_p)
+    return best_p, best_idx, best_f, best_t, best_br, best_bi
+
+
+def _estimate_core(iq_r, iq_i, params: LoraParams, est_syms: int,
+                   tie_break_idx: bool) -> OffsetEstimate:
+    """Shared CFO/timing estimator over the first ``est_syms`` symbols.
+
+    Per symbol, every oversampling phase is windowed and detected; the best
+    phase's (index + fractional index) average gives the coarse CFO, the
+    wrapped inter-symbol phase delta of the winning bin gives the fine CFO,
+    and the average winning phase minus the fractional part gives the timing
+    offset (phy.cpp:100-147).  Its DFT is a plain ``torch.matmul``
+    (``ops/dft.py``), as it is plain XLA in the JAX package.
+    """
+    n, osr, step = params.n, params.osr, params.step
+    sym = iq_r[..., : est_syms * step].reshape(
+        iq_r.shape[:-1] + (est_syms, n, osr))
+    symi = iq_i[..., : est_syms * step].reshape(
+        iq_i.shape[:-1] + (est_syms, n, osr))
+    # axes (..., s, i, t) -> (..., s, t, i)
+    zr = torch.movedim(sym, -1, -2)
+    zi = torch.movedim(symi, -1, -2)
+    win = window_table(n, params.window)
+    if win is not None:
+        w = device_table(window_table, n, params.window, device=zr.device)
+        zr = zr * w
+        zi = zi * w
+    det = detect_ri(zr, zi)
+    best_p, best_idx, best_f, best_t, best_br, best_bi = _best_over_osr(
+        det, osr, tie_break_idx)
+
+    sum_index = torch.sum(best_idx.to(torch.float32) + best_f, dim=-1)
+    sum_t = torch.sum(best_t, dim=-1)
+    phase = torch.atan2(best_bi, best_br)                      # std::arg
+    if est_syms > 1:
+        deltas = _wrap_pi(phase[..., 1:] - phase[..., :-1])
+        phase_diff = torch.sum(deltas, dim=-1)
+        cfo_fine = ((phase_diff / float(np.float32(est_syms - 1)))
+                    / float(TWO_PI * n))
+    else:
+        cfo_fine = torch.zeros_like(sum_index)
+    avg_index = sum_index / float(np.float32(est_syms))
+    cfo = avg_index / float(np.float32(n)) + cfo_fine
+    frac = avg_index - torch.floor(avg_index + 0.5)
+    avg_t = sum_t.to(torch.float32) / float(np.float32(est_syms))
+    time_offset = avg_t - frac * float(np.float32(n)) * float(np.float32(osr))
+    return OffsetEstimate(cfo, time_offset)
+
+
+def estimate_offsets(iq_r, iq_i, params: LoraParams) -> OffsetEstimate:
+    """Estimate CFO and timing offset from preamble symbols (phy.cpp:81-148).
+
+    Uses every whole symbol present in the input, matching the reference's
+    symbol loop.  Batched over leading axes.
+    """
+    symbols = iq_r.shape[-1] // params.step
+    if symbols == 0:
+        raise InvalidArgumentError("need at least one whole symbol")
+    return _estimate_core(iq_r, iq_i, params, symbols, tie_break_idx=False)
+
+
+def _timing_shifted_windows(iq_r, iq_i, t_off, total: int, step: int,
+                            osr: int, n: int, decimate: bool = True):
+    """Extract per-symbol windows with the reference's per-symbol
+    timing-shift clamps (phy.cpp:209-216).
+
+    Each packet's stream is shifted by its ``t_off`` (clipped to
+    [-step, step], zero-padded by one step on each side) with one gather;
+    with |t_off| <= step the per-symbol clamp can only fall back to the
+    unshifted base at the edges — symbol 0 when t < 0 and symbol S-1 when
+    t > 0 — so just those rows are patched from the unshifted stream.
+    """
+    sample_count = total * step
+    batched = iq_r.ndim > 1
+    t = t_off if batched else t_off[None]
+    r2 = iq_r if batched else iq_r[None]
+    i2 = iq_i if batched else iq_i[None]
+    lead = r2.shape[:-1]
+    dev = r2.device
+
+    tc = torch.clamp(t.to(torch.int64), -step, step).reshape(-1, 1)
+    pad_r = torch.nn.functional.pad(
+        r2[..., :sample_count].reshape(-1, sample_count), (step, step))
+    pad_i = torch.nn.functional.pad(
+        i2[..., :sample_count].reshape(-1, sample_count), (step, step))
+    src = step + tc + torch.arange(sample_count, device=dev)
+    wr = torch.gather(pad_r, 1, src).reshape(lead + (total, step))
+    wi = torch.gather(pad_i, 1, src).reshape(lead + (total, step))
+
+    tb = t[..., None]                                           # (..., 1)
+    use_un_first = tb < 0
+    use_un_last = tb > 0
+    wr[..., 0, :] = torch.where(use_un_first, r2[..., :step], wr[..., 0, :])
+    wi[..., 0, :] = torch.where(use_un_first, i2[..., :step], wi[..., 0, :])
+    last = (total - 1) * step
+    wr[..., total - 1, :] = torch.where(
+        use_un_last, r2[..., last:last + step], wr[..., total - 1, :])
+    wi[..., total - 1, :] = torch.where(
+        use_un_last, i2[..., last:last + step], wi[..., total - 1, :])
+    if decimate:
+        # decimate: sample i*osr within each window
+        wr = wr.reshape(lead + (total, n, osr))[..., 0]
+        wi = wi.reshape(lead + (total, n, osr))[..., 0]
+    if not batched:
+        wr, wi = wr[0], wi[0]
+    return wr, wi
+
+
+# ---------------------------------------------------------------------------
+# Host-boundary helpers
+# ---------------------------------------------------------------------------
+
+def to_complex(re, im) -> np.ndarray:
+    """Assemble host complex64 IQ from device planes."""
+    re = re.detach().cpu().numpy() if isinstance(re, torch.Tensor) else re
+    im = im.detach().cpu().numpy() if isinstance(im, torch.Tensor) else im
+    return (np.asarray(re).astype(np.float32)
+            + 1j * np.asarray(im).astype(np.float32))
+
+
+def from_complex(iq, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Split host complex IQ into float32 planes on ``device``."""
+    iq = np.asarray(iq)
+    return (torch.as_tensor(iq.real.astype(np.float32), device=device),
+            torch.as_tensor(iq.imag.astype(np.float32), device=device))
+
+
+def _tiled_downchirp(sf: int, bw_scale: int, osr: int, total: int):
+    dcr, dci = downchirp_ri(sf, bw_scale, osr)
+    return np.tile(dcr, total), np.tile(dci, total)
+
+
+def dechirp(iq_r, iq_i, params: LoraParams):
+    """Multiply each symbol window by the base down-chirp — the external
+    dechirp step of the golden-vector path (tests/e2e_chain_test.cpp:79-93)."""
+    step = params.step
+    total = iq_r.shape[-1] // step
+    dcr, dci = device_table(_tiled_downchirp, params.sf, params.bw_scale,
+                            params.osr, total, device=iq_r.device)
+    cut = total * step
+    rr = iq_r[..., :cut] * dcr - iq_i[..., :cut] * dci
+    ri = iq_r[..., :cut] * dci + iq_i[..., :cut] * dcr
+    return rr, ri

@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Counterpart of the JAX package's ``utils/native.py``, which builds the host
+library lazily.  On first use, ``load()`` compiles every ``csrc/*.cu``
+source with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o libkernels.so csrc/*.cu
+
+and loads it with ``ctypes``.  The library lands in
+``build/lora_torch_kernels/<content-hash>/libkernels.so`` at the root of the
+checkout, keyed by the sources and flags, so an edited kernel is rebuilt
+and an unchanged one is loaded as it is.  Nothing builds at import time:
+the CPU tests import every module on machines with no CUDA toolkit.  A
+failed build raises with nvcc's stderr; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["load", "nvcc_command", "build_dir", "BUILD_INFO"]
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = (Path(__file__).resolve().parent.parent.parent / "build"
+              / "lora_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_c_int = ctypes.c_int
+_c_float = ctypes.c_float
+_c_void_p = ctypes.c_void_p
+
+# C signatures of the kernels' launch functions (each returns the
+# cudaError_t of cudaGetLastError() after its launch).
+_SIGNATURES = {
+    # sym, rows, s_total, n, bs, alt_sign, wc, ws, out_re, out_im, stream
+    "lora_tx_dense": [_c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int,
+                      _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p],
+    # sr, si, t_off, rate, scale, mr, mi, twr, twi, b, s, n, scale_db,
+    # idx, pw, pav, stream
+    "lora_rx_dense": [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                      _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                      _c_int, _c_int, _c_int, _c_float,
+                      _c_void_p, _c_void_p, _c_void_p, _c_void_p],
+}
+
+# Filled by load(): library path, build seconds (0.0 when it was cached)
+# and nvcc's stderr (the -Xptxas=-v register/shared-memory report).
+BUILD_INFO: dict = {}
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    """The content-addressed build directory of the current sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    # torch's own lookup: CUDA_HOME / CUDA_PATH or the toolkit's default
+    # install prefix
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or CUDA_HOME set)")
+
+
+def nvcc_command(out: Path, nvcc: str = "nvcc") -> list[str]:
+    """The nvcc command line that builds ``out`` from ``csrc/*.cu``."""
+    return ([nvcc, *NVCC_FLAGS, "-o", str(out)]
+            + [str(s) for s in _sources() if s.suffix == ".cu"])
+
+
+def _build(target: Path) -> str:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    # build beside the target, then rename: a concurrent loader never
+    # sees a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(nvcc_command(Path(tmp), _nvcc()),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    target = build_dir() / "libkernels.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.exists():
+        log = _build(target)
+    seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    BUILD_INFO.update(path=str(target), seconds=seconds, log=log)
+    _lib = lib
+    return lib

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's sf7 slice, on one CUDA card.
+
+Run from the root of a checkout:
+
+    python3 tools/profile_slice.py [--packets 8192] [--iters 5]
+                                   [--out chiprun_out/profile_sf7.txt]
+
+It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
+sf7/BW125/CR4-5 on random 32-byte payloads (the batch of ``chip_smoke.py``
+phase 4) and reports, all from one process:
+
+- wall ms per iteration: CUDA events over ``--iters`` iterations after a
+  warm-up, without the profiler;
+- device busy ms per iteration: the summed duration of the device
+  activities (kernels, copies, fills) that ``torch.profiler`` records over
+  ``--iters`` further iterations, with their launches per iteration, by
+  name;
+- the device's idle share, 1 - busy / wall, with the wall of the
+  unprofiled run;
+- each stage alone: its host enqueue ms (until the call returns, no
+  synchronize) and its wall ms (until a synchronize after it), the median
+  over ``--iters`` iterations.
+
+The report starts with the ``nvidia-smi`` name/power-limit line, is
+printed, and is written to ``--out``.  It exits nonzero without a CUDA
+card or when the profiler records no device activity.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+import lora_sdr_lightweight_standalone_library_clean_tpu_torch as lora  # noqa: E402
+
+PAYLOAD = 32
+
+
+def _smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _stages(payload, p):
+    """The slice as (name, thunk) pairs, each thunk feeding the next."""
+    state = {}
+
+    def enc():
+        state["syms"] = lora.encode(payload)
+
+    def mod():
+        state["iq"] = lora.modulate_dechirped(state["syms"], p)
+
+    def dem():
+        state["res"] = lora.demodulate_tones(*state["iq"], p)
+
+    def dec():
+        state["dec"], state["ok"] = lora.decode(state["res"].symbols)
+
+    return state, [("encode", enc), ("modulate_dechirped", mod),
+                   ("demodulate_tones", dem), ("decode", dec)]
+
+
+def _wall_ms(run, iters: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _device_activity(run, iters: int):
+    """{name: [launches, total us]} of the device activities in ``iters``
+    runs, from torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    acts = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acts[e.name][0] += 1
+            acts[e.name][1] += e.time_range.elapsed_us()
+    return acts
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--packets", type=int, default=8192)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--out", default="chiprun_out/profile_sf7.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_slice: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    p = lora.LoraParams(sf=7, bw=125000, cr="4/5")
+    rng = np.random.default_rng(args.seed)
+    payload = torch.as_tensor(
+        rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
+        device=dev)
+    state, stages = _stages(payload, p)
+
+    def run():
+        for _, fn in stages:
+            fn()
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    assert torch.equal(state["dec"], payload), "the slice did not decode"
+
+    wall = _wall_ms(run, args.iters)
+    acts = _device_activity(run, args.iters)
+    if not acts:
+        print("profile_slice: the profiler recorded no device activity",
+              file=sys.stderr)
+        return 1
+    busy = sum(us for _, us in acts.values()) / 1e3 / args.iters
+    launches = sum(c for c, _ in acts.values()) / args.iters
+
+    per_stage = {name: ([], []) for name, _ in stages}
+    for _ in range(args.iters):
+        for name, fn in stages:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            per_stage[name][0].append((t1 - t0) * 1e3)
+            per_stage[name][1].append((t2 - t0) * 1e3)
+
+    lines = [
+        _smi(),
+        f"torch {torch.__version__} cuda {torch.version.cuda}; sf7, "
+        f"{args.packets} packets x {PAYLOAD} B, {args.iters} iterations",
+        f"wall per iteration {wall:.3f} ms (CUDA events, no profiler); "
+        f"device busy {busy:.3f} ms per iteration ({launches:.0f} device "
+        f"activities); idle share {1.0 - busy / wall:.3f}",
+        "device time per iteration, by activity:",
+    ]
+    for name, (count, us) in sorted(acts.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"  {us / args.iters:9.1f} us  {count / args.iters:4.0f}x"
+                     f"  {name[:110]}")
+    lines.append("each stage alone, median ms: host enqueue / wall")
+    for name, (enq, tot) in per_stage.items():
+        lines.append(f"  {name:20s} {statistics.median(enq):8.3f} / "
+                     f"{statistics.median(tot):8.3f}")
+    report = "\n".join(lines)
+    print(report)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(report + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,16 +8,20 @@ tensors run plain PyTorch; CUDA tensors run the hand-written Hopper
 kernels in ``csrc/`` (built by ``utils/cuda_build.py`` at first use) or
 raise ``NotImplementedError`` where no kernel is ported yet.
 
-This slice covers the packet pipeline
-``encode -> modulate_dechirped -> demodulate_tones -> decode``.
+It covers osr == 1 from sf2 to sf12 on the card: the packet pipeline
+``encode -> modulate_dechirped -> demodulate_tones -> decode`` and the
+full-RX entry point ``modulate -> demodulate`` (with ``estimate_offsets``
+and ``compensate_offsets``).  On the CPU every entry point also runs at
+osr > 1.
 """
 from .utils.config import (LoraParams, Window, load_profiles,
                            params_from_profile, params_from_reference,
                            STOCK_PROFILES)
 from .utils import errors
 from .models.modem import (
-    encode, decode, modulate, modulate_dechirped, estimate_offsets, dechirp,
-    to_complex, from_complex, crc_sx1272, DemodResult, OffsetEstimate,
+    encode, decode, modulate, modulate_dechirped, estimate_offsets,
+    compensate_offsets, demodulate, dechirp, to_complex, from_complex,
+    crc_sx1272, DemodResult, OffsetEstimate,
 )
 from .models.tones import demodulate_tones
 

@@ -1,0 +1,86 @@
+// Pieces shared by the fused RX kernels (rx_dense.cu, rx_hybrid.cu): the
+// window of one (packet, symbol), its samples rotated and multiplied with
+// the plain PyTorch version's rounding, the first-max rule and the dB
+// epilogue.  Steps (a), (b) and (d) of rx_dense.cu's header.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lora_rx {
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+
+// (v, k) wins over (bv, bk): the larger value, NaN counting as the
+// largest, the lower index on ties.
+__device__ __forceinline__ bool takes(float v, int k, float bv, int bk) {
+  const bool vn = isnan(v), bn = isnan(bv);
+  if (vn || bn) return vn && (!bn || k < bk);
+  return v > bv || (v == bv && k < bk);
+}
+
+struct Window {
+  const float* row_r;   // first sample of the timing-shifted window
+  const float* row_i;
+  float rate;           // CFO derotation rate per sample
+  float scale;          // per-packet amplitude normalisation
+  float start;          // rotation phase of sample 0: rate * (s*n + t)
+};
+
+// (a) window `win` = b * S + s of n samples: stream[b, s*n + t + i] with
+// the reference's edge clamp (phy.cpp:209-216): symbol 0 reads unshifted
+// when t < 0, symbol S-1 when t > 0.
+__device__ __forceinline__ Window window_of(
+    const float* __restrict__ sr, const float* __restrict__ si,
+    const int* __restrict__ t_off, const float* __restrict__ rate,
+    const float* __restrict__ scale, int win, int S, int n) {
+  const int b = win / S;
+  const int s = win - b * S;
+  int t = t_off[b];
+  t = t < -n ? -n : (t > n ? n : t);     // callers pass |t| <= n already
+  const bool unshifted = (s == 0 && t < 0) || (s == S - 1 && t > 0);
+  const size_t base = (size_t)b * S * n + (size_t)s * n;
+  Window w;
+  w.row_r = sr + base + (unshifted ? 0 : t);
+  w.row_i = si + base + (unshifted ? 0 : t);
+  w.rate = rate[b];
+  w.scale = scale[b];
+  w.start = __fmul_rn(w.rate, (float)(s * n + t));
+  return w;
+}
+
+// (b) sample i: x * scale * e^{j(start + rate*i)} * mult[i], each product
+// rounded as the plain version rounds it (no contraction into FMAs), with
+// the accurate sincosf: the phase reaches hundreds of radians on raw
+// chirps at sf12, where the fast intrinsic's error is no longer small.
+__device__ __forceinline__ void rotated_sample(
+    const Window& w, const float* __restrict__ mr,
+    const float* __restrict__ mi, int i, float* out_r, float* out_i) {
+  const float zr = __fmul_rn(__ldg(w.row_r + i), w.scale);
+  const float zi = __fmul_rn(__ldg(w.row_i + i), w.scale);
+  const float ph = __fadd_rn(w.start, __fmul_rn(w.rate, (float)i));
+  float sn, cs;
+  sincosf(ph, &sn, &cs);
+  const float fr = __fsub_rn(__fmul_rn(zr, cs), __fmul_rn(zi, sn));
+  const float fi = __fadd_rn(__fmul_rn(zr, sn), __fmul_rn(zi, cs));
+  const float m_r = __ldg(mr + i);
+  const float m_i = __ldg(mi + i);
+  *out_r = __fsub_rn(__fmul_rn(fr, m_r), __fmul_rn(fi, m_i));
+  *out_i = __fadd_rn(__fmul_rn(fr, m_i), __fmul_rn(fi, m_r));
+}
+
+// (d) the window's first-max bin, 20log10(sqrt(max)) - 20log10(n) and
+// 20log10(sqrt(sum - max)) - 20log10(n).
+__device__ __forceinline__ void store_detection(
+    int win, float best, int bin, float sum, float scale_db,
+    int* __restrict__ idx_out, float* __restrict__ pw_out,
+    float* __restrict__ pav_out) {
+  const float fund = sqrtf(best);
+  const float noise = sqrtf(fmaxf(sum - best, 0.f));
+  idx_out[win] = bin;
+  pw_out[win] = 20.f * log10f(fund) - scale_db;
+  pav_out[win] = 20.f * log10f(noise) - scale_db;
+}
+
+}  // namespace lora_rx

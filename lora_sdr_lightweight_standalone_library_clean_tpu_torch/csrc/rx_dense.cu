@@ -29,13 +29,18 @@
 // n/2 threads (one butterfly per thread per stage), or 128 / (n/2) windows
 // when n < 256, so every block has at least 128 threads.  When a window has
 // fewer than 32 threads (n <= 32), the warp reduction runs in segments of
-// n/2 lanes, so it never mixes two windows.
+// n/2 lanes, so it never mixes two windows.  Steps (a), (b) and the dB
+// epilogue of (d) live in rx_common.cuh, shared with rx_hybrid.cu (n =
+// 1024 ... 4096).
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "rx_common.cuh"
+
 namespace {
 
-constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+using lora_rx::ilog2;
+using lora_rx::takes;
 
 template <int N>
 struct RxShape {
@@ -46,14 +51,6 @@ struct RxShape {
   static constexpr int kWarps = kHalf / kSeg;            // segments / window
   static constexpr int kLog = ilog2(N);
 };
-
-// (v, k) wins over (bv, bk): the larger value, NaN counting as the
-// largest, the lower index on ties.
-__device__ __forceinline__ bool takes(float v, int k, float bv, int bk) {
-  const bool vn = isnan(v), bn = isnan(bv);
-  if (vn || bn) return vn && (!bn || k < bk);
-  return v > bv || (v == bv && k < bk);
-}
 
 template <int N>
 __global__ void __launch_bounds__(RxShape<N>::kThreads)
@@ -84,32 +81,13 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
   // (a) + (b): load, normalise, rotate, multiply; store bit-reversed for
   // the decimation-in-time FFT below.
   if (valid) {
-    const int b = win / S;
-    const int s = win - b * S;
-    int t = t_off[b];
-    t = t < -N ? -N : (t > N ? N : t);   // callers pass |t| <= n already
-    const bool unshifted = (s == 0 && t < 0) || (s == S - 1 && t > 0);
-    const int base = s * N + (unshifted ? 0 : t);
-    const float* row_r = sr + (size_t)b * S * N + base;
-    const float* row_i = si + (size_t)b * S * N + base;
-    const float r = rate[b];
-    const float sc = scale[b];
-    const float start = __fmul_rn(r, (float)(s * N + t));
+    const lora_rx::Window w =
+        lora_rx::window_of(sr, si, t_off, rate, scale, win, S, N);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = lt + h * H;
-      const float zr = __fmul_rn(__ldg(row_r + i), sc);
-      const float zi = __fmul_rn(__ldg(row_i + i), sc);
-      const float ph = __fadd_rn(start, __fmul_rn(r, (float)i));
-      float sn, cs;
-      sincosf(ph, &sn, &cs);
-      const float fr = __fsub_rn(__fmul_rn(zr, cs), __fmul_rn(zi, sn));
-      const float fi = __fadd_rn(__fmul_rn(zr, sn), __fmul_rn(zi, cs));
-      const float m_r = __ldg(mr + i);
-      const float m_i = __ldg(mi + i);
       const int j = (int)(__brev((unsigned)i) >> (32 - Shape::kLog));
-      wr[j] = __fsub_rn(__fmul_rn(fr, m_r), __fmul_rn(fi, m_i));
-      wi[j] = __fadd_rn(__fmul_rn(fr, m_i), __fmul_rn(fi, m_r));
+      lora_rx::rotated_sample(w, mr, mi, i, &wr[j], &wi[j]);
     }
   }
   __syncthreads();
@@ -181,11 +159,8 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
       }
       tot += red_s[wl][w];
     }
-    const float fund = sqrtf(bv);
-    const float noise = sqrtf(fmaxf(tot - bv, 0.f));
-    idx_out[win] = kk;
-    pw_out[win] = 20.f * log10f(fund) - scale_db;
-    pav_out[win] = 20.f * log10f(noise) - scale_db;
+    lora_rx::store_detection(win, bv, kk, tot, scale_db, idx_out, pw_out,
+                             pav_out);
   }
 }
 

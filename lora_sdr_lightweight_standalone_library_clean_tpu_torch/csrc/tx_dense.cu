@@ -64,8 +64,9 @@ extern "C" int lora_tx_dense(const void* sym, int rows, int s_total, int n,
   const int n4 = n / 4;
   const int threads = 256;                 // n4 <= 128 divides 256
   const int rows_per_block = threads / n4;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  tx_dense_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const long long blocks =
+      ((long long)rows + rows_per_block - 1) / rows_per_block;
+  tx_dense_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int*)sym, rows, s_total, n4, bs, alt_sign,
       (const float4*)wc, (const float4*)ws, (float4*)out_re,
       (float4*)out_im);

@@ -1,4 +1,4 @@
-"""LoRa modem pipeline, main-path part: encode/modulate/estimate/decode.
+"""LoRa modem pipeline: encode/modulate/estimate/compensate/demodulate/decode.
 
 PyTorch port of ``lora_sdr_lightweight_standalone_library_clean_tpu/models/
 modem.py`` (reference ``src/phy/phy.cpp``, ``include/lora_phy/phy.hpp``).
@@ -6,12 +6,13 @@ Every function is a plain function on tensors, batched over leading axes
 (packets), with metrics returned as tensors.  IQ is carried as two float32
 planes (re, im) at every public function, as in the JAX package.
 
-The device of the input decides the path.  On a CPU tensor ``modulate`` and
-``modulate_dechirped`` run the plain PyTorch versions; on a CUDA tensor they
-launch the hand-written TX kernel (``ops/cuda_tx.py``) and raise
-``NotImplementedError`` where it does not reach.  The codec, the CFO/timing
-estimator and ``dechirp`` are plain tensor code on either device, as they
-are plain XLA code in the JAX package.
+The device of the input decides the path.  On a CPU tensor ``modulate``,
+``modulate_dechirped`` and ``demodulate`` run the plain PyTorch versions; on
+a CUDA tensor they launch the hand-written TX kernels (``ops/cuda_tx.py``)
+and RX kernels (``ops/cuda_rx.py``) and raise ``NotImplementedError`` where
+those do not reach (osr > 1).  The codec, the CFO/timing estimator,
+``compensate_offsets`` and ``dechirp`` are plain tensor code on either
+device, as they are plain XLA code in the JAX package.
 
 Symbols are int32 tensors (the JAX package's uint16 values; torch's uint16
 type supports too few operations on CUDA), decoded bytes uint8, CRCs int32.
@@ -21,6 +22,8 @@ Reference parity map:
  - ``decode``             -> phy.cpp:245-261 + LoRaDecoder.cpp:7-21
  - ``modulate``           -> phy.cpp:68-79  + LoRaMod.cpp:8-43
  - ``estimate_offsets``   -> phy.cpp:81-148
+ - ``compensate_offsets`` -> phy.cpp:150-180
+ - ``demodulate``         -> phy.cpp:182-243
 """
 from __future__ import annotations
 
@@ -32,15 +35,17 @@ import torch
 
 from ..ops import codes
 from ..ops.chirp import _with_sync_prelude, downchirp_ri, modulate_ri
+from ..ops.cuda_rx import rx_window_detect
 from ..ops.detect import detect_ri
 from ..utils.config import LoraParams, Window
-from ..utils.errors import InvalidArgumentError
+from ..utils.errors import InvalidArgumentError, RangeError
 from ..utils.tensors import device_table, int_tensor
 
 __all__ = [
     "DemodResult", "OffsetEstimate",
     "encode", "decode", "crc_sx1272",
     "modulate", "modulate_dechirped", "estimate_offsets",
+    "compensate_offsets", "demodulate",
     "window_table", "to_complex", "from_complex", "dechirp",
 ]
 
@@ -230,11 +235,12 @@ def modulate_dechirped(symbols, params: LoraParams, amplitude: float = 1.0):
     tests/e2e_chain_test.cpp:79-93, tests/performance_test.cpp:112-125).
 
     Equivalent to ``dechirp(*modulate(...))`` up to last-ULP IQ
-    differences.  The down-chirp multiply folds into the TX tables, so the
-    pre-dechirped stream is written once.  A CUDA input runs the TX kernel
-    (osr == 1, n <= 512; anything else raises ``NotImplementedError``).  A
-    CPU input runs the kernel's plain version where the kernel would apply,
-    else modulate then dechirp.
+    differences.  The down-chirp multiply folds into the TX multiplier, so
+    the pre-dechirped stream is written once.  A CUDA input runs the TX
+    kernels (osr == 1, every sf; osr > 1 raises ``NotImplementedError``).
+    A CPU input runs the kernels' plain version where a kernel would apply
+    (dense tables to sf9, factored digit tables for sf10-12), else
+    modulate then dechirp.
     """
     from ..ops.cuda_tx import tx_supported, tx_tone_synth
     sym = int_tensor(symbols, torch.int32)
@@ -352,6 +358,104 @@ def estimate_offsets(iq_r, iq_i, params: LoraParams) -> OffsetEstimate:
     if symbols == 0:
         raise InvalidArgumentError("need at least one whole symbol")
     return _estimate_core(iq_r, iq_i, params, symbols, tie_break_idx=False)
+
+
+def compensate_offsets(iq_r, iq_i, params: LoraParams, est: OffsetEstimate):
+    """Derotate by -CFO then integer-shift by the timing offset with
+    zero-fill (phy.cpp:150-180).  Batched; returns new (re, im).
+
+    A shift of |off| >= the sample count leaves the derotated stream
+    unshifted, as in the JAX package.
+    """
+    n, osr = params.n, params.osr
+    count = iq_r.shape[-1]
+    dev = iq_r.device
+    rate = -float(TWO_PI) * est.cfo / float(np.float32(n * osr))   # (...,)
+    ph = rate[..., None] * torch.arange(count, dtype=torch.float32,
+                                        device=dev)
+    c, s = torch.cos(ph), torch.sin(ph)
+    rr = iq_r * c - iq_i * s
+    ri = iq_r * s + iq_i * c
+    off = torch.round(est.time_offset).to(torch.int64)[..., None]  # (..., 1)
+    # shift right by off (> 0) with leading zeros, left by -off with
+    # trailing zeros
+    src = torch.arange(count, device=dev) - off
+    do_shift = (off != 0) & (off.abs() < count)
+    in_bounds = (src >= 0) & (src < count)
+    src_c = torch.clamp(src, 0, count - 1).expand(rr.shape)
+    shifted_r = torch.where(in_bounds, torch.gather(rr, -1, src_c), 0.0)
+    shifted_i = torch.where(in_bounds, torch.gather(ri, -1, src_c), 0.0)
+    return (torch.where(do_shift, shifted_r, rr),
+            torch.where(do_shift, shifted_i, ri))
+
+
+# ---------------------------------------------------------------------------
+# Full-RX demodulation  (phy.cpp:182-243)
+# ---------------------------------------------------------------------------
+
+def _full_rx_mult(sf: int, bw_scale: int, window: Window):
+    """The full-RX multiplier: the demod down-chirp x window (phy.cpp:
+    206-227), as the JAX package's kernel branch folds it
+    (``models/modem.py:497-501``)."""
+    dcr, dci = downchirp_ri(sf, bw_scale)
+    win = window_table(1 << sf, window)
+    if win is not None:
+        dcr = dcr * win
+        dci = dci * win
+    return dcr, dci
+
+
+def demodulate(iq_r, iq_i, params: LoraParams,
+               symbol_cap: int | None = None) -> DemodResult:
+    """Full-fidelity RX: offset estimation, dechirp, CFO derotation,
+    windowing, detection, sync-word extraction (phy.cpp:182-243).
+
+    ``iq`` length must be a whole number of oversampled symbols and contain
+    at least the two sync symbols; the first two detections become the sync
+    word, the rest the data symbols.  The estimator runs on the raw sync
+    chirps without the tones path's tie-break (phy.cpp:81-148), so on the
+    reference's own modulation it returns the reference's offset estimate,
+    not the true one (PARITY.md defect 1).
+
+    The device of the input decides the detection path
+    (``ops/cuda_rx.py::rx_window_detect``): a CUDA tensor runs the fused RX
+    kernel (osr == 1; osr > 1 raises ``NotImplementedError``), a CPU tensor
+    its plain version at any osr.  Both rotate each window and then multiply
+    by down-chirp x window, as the JAX package's kernel branch does; its jnp
+    branch dechirps before it rotates (``models/modem.py:515-525``), a float
+    reordering that moves no detection of the reference fixtures.
+    """
+    n, step = params.n, params.step
+    sample_count = iq_r.shape[-1]
+    if sample_count % step != 0:
+        raise InvalidArgumentError(
+            f"sample count {sample_count} not a multiple of step {step}")
+    total = sample_count // step
+    if total < 2:
+        raise RangeError("input must contain at least two symbols")
+    num_symbols = total - 2
+    if symbol_cap is not None and num_symbols > symbol_cap:
+        raise RangeError(f"{num_symbols} symbols exceed cap {symbol_cap}")
+
+    est = _estimate_core(iq_r, iq_i, params, 2, tie_break_idx=False)
+    t_off = torch.round(est.time_offset).to(torch.int32)
+    rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
+    mr, mi = device_table(_full_rx_mult, params.sf, params.bw_scale,
+                          params.window, device=iq_r.device)
+    idx, power, power_avg = rx_window_detect(
+        iq_r.contiguous(), iq_i.contiguous(), torch.clamp(t_off, -step, step),
+        rate, torch.ones_like(rate), mr, mi, params)
+    sw0, sw1 = idx[..., 0], idx[..., 1]
+    shift = params.sf - 4 if params.sf > 4 else 0
+    sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
+    return DemodResult(
+        symbols=idx[..., 2:],
+        sync_word=sync.to(torch.uint8),
+        cfo=est.cfo,
+        time_offset=est.time_offset,
+        power=power,
+        power_avg=power_avg,
+    )
 
 
 def _timing_shifted_windows(iq_r, iq_i, t_off, total: int, step: int,

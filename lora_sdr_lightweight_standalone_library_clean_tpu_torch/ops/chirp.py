@@ -26,7 +26,7 @@ Two plain forms synthesize the IQ, as in the JAX package:
   (n, n) tone table.
 
 ``modulate_ri`` lets the device of its input decide: a CUDA tensor goes to
-the hand-written TX kernel (``ops/cuda_tx.py``), a CPU tensor to the plain
+the hand-written TX kernels (``ops/cuda_tx.py``), a CPU tensor to the plain
 forms.  Valid for ``sym < 2*N``, like the reference's single-subtraction
 wrap.
 """
@@ -117,10 +117,12 @@ def modulate_ri(symbols, params: LoraParams, amplitude: float = 1.0):
 
     Emits the two sync-word chirps followed by one up-chirp per symbol with a
     packet-wide exactly-carried phase.  Batched over any leading axes of
-    ``symbols``.  A CUDA tensor is synthesized by the TX kernel
-    (``ops/cuda_tx.py``; osr == 1 and n <= 512, anything else raises
+    ``symbols``.  A CUDA tensor is synthesized by the TX kernels
+    (``ops/cuda_tx.py``: the dense one to n = 512, the factored one for
+    n = 1024 ... 4096, i.e. every sf at osr == 1; osr > 1 raises
     ``NotImplementedError``); a CPU tensor or host array by the plain tone
-    lookup at osr == 1, else the closed-form phases.
+    lookup at osr == 1 (factored above n = 512), else the closed-form
+    phases.
 
     Returns (re, im) float32 tensors of shape (..., (S+2) * n * osr).
     """

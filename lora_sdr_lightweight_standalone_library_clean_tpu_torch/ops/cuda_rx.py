@@ -1,9 +1,10 @@
 """Fused packet RX: the hand-written CUDA kernel and its plain form.
 
 Counterpart of ``lora_sdr_lightweight_standalone_library_clean_tpu/ops/
-pallas_rx.py`` for osr == 1, n <= 512, ``wide=False`` and no halo: the
-kernel ``_rx_kernel`` that ``_rx_call`` runs in its direct-window form with
-the dense DFT.  Per packet b and symbol s it
+pallas_rx.py`` for osr == 1, n <= 4096, ``wide=False`` and no halo: the
+kernel ``_rx_kernel`` that ``_rx_call`` runs in its direct-window form,
+with the dense DFT (n <= 512) or the hybrid DFT (n = 1024 ... 4096).  Per
+packet b and symbol s it
 
   (a) takes the timing-shifted window ``stream[b, s*n + t + i]`` with the
       reference edge clamp (``phy.cpp:209-216``): symbol 0 reads unshifted
@@ -17,9 +18,11 @@ the dense DFT.  Per packet b and symbol s it
 runs ``rx_window_detect_ref``, the torch form of the JAX package's jnp path
 (``_timing_shifted_windows``, the rotation ``start + rate*i`` of
 ``models/tones.py:95-97,145-149``, the multiplier, then ``detect_ri`` on a
-dense ``torch.matmul`` DFT); on a CUDA tensor it launches
-``csrc/rx_dense.cu`` or raises.  Every launch adds one to
-``KERNEL_LAUNCHES``.
+``torch.matmul`` DFT: dense to n = 512, ``ops/dft.py``'s four-step product
+above); on a CUDA tensor it launches ``csrc/rx_dense.cu`` (n <= 512) or
+``csrc/rx_hybrid.cu`` (n = 1024 ... 4096), or raises.  Each launch adds one
+to its kernel's count (``DENSE_LAUNCHES`` or ``HYBRID_LAUNCHES``) and to
+their sum ``KERNEL_LAUNCHES``.
 
 Non-finite input is outside this slice's contract and no test feeds it.
 Where |X|^2 holds a NaN, both versions follow the jnp rule: the first NaN
@@ -27,14 +30,17 @@ bin wins, as ``torch.argmax`` and ``jnp.argmax`` pick it.  (The TPU
 kernel's float first-max returns the out-of-range bin n instead,
 ``pallas_rx.py:326``.)
 
-Kernel note.  Replaces ``ops/pallas_rx.py:_rx_kernel`` (dense, direct
-window).  On the H100 the floor is the one read of the stream, 8 bytes per
-sample; the compute per sample is one sincos, the rotation multiplies and
-log2(n) shared-memory FFT stages.  The TPU multiplies by a dense DFT matrix
-because it has no FFT; the kernel runs a radix-2 FFT in shared memory, in
-float32 with twiddles built in float64, and keeps windows and spectra out
-of device memory: n/2 threads per window, as many windows per block as
-make 128 threads when n < 256, and 12 bytes written per window.
+Kernel note.  Replaces ``ops/pallas_rx.py:_rx_kernel`` (direct window;
+dense and hybrid DFT).  On the H100 the floor is the one read of the
+stream, 8 bytes per sample; the compute per sample is one sincos, the
+rotation multiplies and log2(n) shared-memory FFT stages.  The TPU
+multiplies by a dense DFT matrix, or runs DIF passes into a 128-point DFT
+matmul, because it has no FFT; the kernels run a radix-2 FFT in shared
+memory, in float32 with twiddles built in float64, and keep windows and
+spectra out of device memory, 12 bytes written per window.  ``rx_dense``
+gives each window n/2 threads (as many windows per block as make 128
+threads when n < 256); ``rx_hybrid`` gives each window one 512-thread
+block, n/1024 butterflies per thread and stage.
 """
 from __future__ import annotations
 
@@ -47,10 +53,13 @@ from ..utils.tensors import device_table
 from .detect import detect_ri
 
 __all__ = ["rx_window_detect", "rx_window_detect_ref", "KERNEL_LAUNCHES",
-           "RX_MAX_N"]
+           "DENSE_LAUNCHES", "HYBRID_LAUNCHES", "RX_DENSE_MAX_N", "RX_MAX_N"]
 
-RX_MAX_N = 512
-KERNEL_LAUNCHES = 0
+RX_DENSE_MAX_N = 512      # rx_dense.cu; rx_hybrid.cu above
+RX_MAX_N = 4096
+DENSE_LAUNCHES = 0
+HYBRID_LAUNCHES = 0
+KERNEL_LAUNCHES = 0       # DENSE_LAUNCHES + HYBRID_LAUNCHES
 
 
 def _require_supported(params: LoraParams, wide: bool, halo) -> None:
@@ -59,8 +68,8 @@ def _require_supported(params: LoraParams, wide: bool, halo) -> None:
     if wide or tuple(halo) != (0, 0):
         raise NotImplementedError(
             "the wide/halo RX detect is not ported yet: it is ROADMAP kernel "
-            "items #5 and #6 (ops/pallas_rx.py::_rx_kernel hybrid and "
-            "padded/halo forms)")
+            "items #5 at 8192/16384 points and #6 "
+            "(ops/pallas_rx.py::_rx_kernel hybrid and padded/halo forms)")
     if params.osr != 1:
         raise NotImplementedError(
             f"the RX kernel at osr={params.osr} is not ported yet: it is "
@@ -69,12 +78,13 @@ def _require_supported(params: LoraParams, wide: bool, halo) -> None:
     if params.n > RX_MAX_N:
         raise NotImplementedError(
             f"the RX kernel at n={params.n} is not ported yet: it is ROADMAP "
-            "kernel item #5 (ops/pallas_rx.py::_rx_kernel hybrid DFT)")
+            "kernel item #5 at 8192/16384 points "
+            "(ops/pallas_rx.py::_rx_kernel hybrid DFT)")
 
 
 def _fft_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
     """(n/2,) FFT twiddles exp(-2j*pi*k/n) as (cos, sin) planes, float64
-    math rounded to float32."""
+    math rounded to float32 (up to 2048 entries at n = 4096)."""
     ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
 
@@ -140,11 +150,12 @@ def rx_window_detect(stream_r, stream_i, t_off, rate, scale, mult_r, mult_i,
     """Fused RX: timing-shifted windows + rotation/multiplier + DFT + detect.
 
     Same contract as ``rx_window_detect_ref``.  A CPU input runs the plain
-    version; a CUDA input launches ``csrc/rx_dense.cu`` and raises
-    ``NotImplementedError`` for osr > 1, n > 512, ``wide`` or a halo.  On
-    CUDA every input must be contiguous and of the stated dtype.
+    version; a CUDA input launches ``csrc/rx_dense.cu`` (n <= 512) or
+    ``csrc/rx_hybrid.cu`` (n = 1024 ... 4096) and raises
+    ``NotImplementedError`` for osr > 1, ``wide`` or a halo.  On CUDA every
+    input must be contiguous and of the stated dtype.
     """
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, DENSE_LAUNCHES, HYBRID_LAUNCHES
     if not stream_r.is_cuda:
         return rx_window_detect_ref(stream_r, stream_i, t_off, rate, scale,
                                     mult_r, mult_i, params, wide=wide,
@@ -176,15 +187,21 @@ def rx_window_detect(stream_r, stream_i, t_off, rate, scale, mult_r, mult_i,
         return idx, pw, pav
     twr, twi = device_table(_fft_twiddles, n, device=dev)
     scale_db = float(np.float32(20.0 * np.log10(n)))
-    lib = cuda_build.load()
+    dense = n <= RX_DENSE_MAX_N
+    name = "lora_rx_dense" if dense else "lora_rx_hybrid"
+    launch = getattr(cuda_build.load(), name)
     with torch.cuda.device(dev):
-        err = lib.lora_rx_dense(
+        err = launch(
             sr.data_ptr(), si.data_ptr(), t.data_ptr(), r.data_ptr(),
             sc.data_ptr(), mr.data_ptr(), mi.data_ptr(), twr.data_ptr(),
             twi.data_ptr(), bsz, s_real, n, scale_db, idx.data_ptr(),
             pw.data_ptr(), pav.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"lora_rx_dense launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     KERNEL_LAUNCHES += 1
+    if dense:
+        DENSE_LAUNCHES += 1
+    else:
+        HYBRID_LAUNCHES += 1
     return idx, pw, pav

@@ -13,6 +13,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -184,13 +185,22 @@ def test_rx_wrapper_on_cpu_runs_plain_version():
 
 
 def test_rx_fft_twiddles_are_the_dft_matrix_row():
-    """The kernel's FFT twiddles exp(-2j*pi*k/n) are bit-equal to row 1 of
-    the dense DFT matrix the plain version multiplies by."""
+    """The kernels' FFT twiddles exp(-2j*pi*k/n) are bit-equal to row 1 of
+    the dense DFT matrix: the matrix itself to n = 512, and to n = 4096
+    its row 1 computed as ``_dft_mats`` computes it, without the (n, n)
+    matrix."""
     for n in (128, 256, 512):
         twr, twi = cuda_rx._fft_twiddles(n)
         c, s = dft._dft_mats(n)
         assert np.array_equal(twr, c[1, : n // 2])
         assert np.array_equal(twi, -s[1, : n // 2])
+    for n in (1024, 2048, 4096):
+        twr, twi = cuda_rx._fft_twiddles(n)
+        k = np.arange(n, dtype=np.int64)
+        ang = 2.0 * np.pi * ((k[1:2, None] * k[None, :]) % n) / n
+        assert twr.shape == (n // 2,)
+        assert np.array_equal(twr, np.cos(ang).astype(np.float32)[0, : n // 2])
+        assert np.array_equal(twi, -np.sin(ang).astype(np.float32)[0, : n // 2])
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +209,7 @@ def test_rx_fft_twiddles_are_the_dft_matrix_row():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(sf=7, osr=2), "#3"),
-    (dict(sf=10), "#2"),
+    (dict(sf=12, bw=500000, osr=4), "#3"),
 ])
 def test_tx_uncovered_config_raises(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -211,7 +221,7 @@ def test_tx_uncovered_config_raises(kw, item):
 
 @pytest.mark.parametrize("kw,wide,halo,item", [
     (dict(sf=7, osr=2), False, (0, 0), "#6"),
-    (dict(sf=10), False, (0, 0), "#5"),
+    (dict(sf=12, bw=500000, osr=4), True, (0, 0), "#5"),
     (dict(sf=7), True, (0, 0), "#5"),
     (dict(sf=7), False, (1, 1), "#6"),
     (dict(sf=5, osr=2), False, (0, 0), "#6"),
@@ -222,11 +232,17 @@ def test_rx_uncovered_config_raises(kw, wide, halo, item):
 
 
 def test_supported_predicates():
-    assert cuda_tx.tx_supported(4, 1) and cuda_tx.tx_supported(512, 1)
-    assert not cuda_tx.tx_supported(1024, 1)
+    """osr 1 is covered from n = 4 to 4096 (sf2-12); 8192 points and
+    osr > 1 are not."""
+    for n in (4, 512, 1024, 2048, 4096):
+        assert cuda_tx.tx_supported(n, 1)
+    assert not cuda_tx.tx_supported(8192, 1)
     assert not cuda_tx.tx_supported(128, 2)
-    for sf in range(2, 10):  # n = 4 ... 512
+    for sf in range(2, 13):  # n = 4 ... 4096
         cuda_rx._require_supported(T.LoraParams(sf=sf), False, (0, 0))
+    with pytest.raises(NotImplementedError, match="#5"):
+        cuda_rx._require_supported(SimpleNamespace(n=8192, osr=1), False,
+                                   (0, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +263,21 @@ def test_kernel_modules_import_without_cuda():
 
 
 def test_nvcc_command_targets_sm90a():
-    cmd = cuda_build.nvcc_command(Path("lib.so"))
+    """One compile per source for sm_90a, then one shared-library link."""
+    srcs = sorted(s.name for s in cuda_build._sources()
+                  if s.suffix == ".cu")
+    assert srcs == ["rx_dense.cu", "rx_hybrid.cu", "tx_dense.cu",
+                    "tx_factored.cu"]
+    cmd = cuda_build.compile_command(Path("csrc/rx_hybrid.cu"),
+                                     Path("rx_hybrid.o"))
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+    for flag in ("-std=c++17", "-O3", "-fPIC", "-c", "-Xptxas=-v"):
         assert flag in cmd
-    srcs = sorted(Path(c).name for c in cmd if c.endswith(".cu"))
-    assert srcs == ["rx_dense.cu", "tx_dense.cu"]
+    assert cmd[-1] == "csrc/rx_hybrid.cu" and "-shared" not in cmd
+    link = cuda_build.link_command([Path("a.o"), Path("b.o")],
+                                   Path("lib.so"))
+    assert link[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    assert "-shared" in link and link[-2:] == ["a.o", "b.o"]
 
 
 def test_build_dir_is_content_addressed():
@@ -263,15 +288,18 @@ def test_build_dir_is_content_addressed():
 
 
 def test_failed_build_raises_with_nvcc_stderr(tmp_path, monkeypatch):
-    """A compiler that fails: load() raises with its stderr and leaves no
-    library behind."""
+    """A compiler that fails on one source: load() raises with its stderr
+    and leaves no library behind."""
     fake_nvcc = [sys.executable, "-c",
                  "import sys; sys.stderr.write('error: no such intrinsic'); "
                  "sys.exit(2)"]
+    fine = [sys.executable, "-c", "pass"]
     monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(cuda_build, "nvcc_command",
-                        lambda out, nvcc="nvcc": fake_nvcc)
+    monkeypatch.setattr(
+        cuda_build, "compile_command",
+        lambda src, obj, nvcc="nvcc": (fake_nvcc if src.stem == "rx_hybrid"
+                                       else fine))
     monkeypatch.setattr(cuda_build, "_lib", None)
     with pytest.raises(RuntimeError, match="no such intrinsic"):
         cuda_build.load()
@@ -290,16 +318,22 @@ def test_wrappers_name_the_tpu_kernel_they_replace():
     """Each kernel source and wrapper carries the note of what it replaces
     (file:function), what bounds it on the H100 and what it does about it."""
     root = REPO / PORT
-    for src, tpu in (("csrc/tx_dense.cu", "ops/pallas_tx.py:_tx_kernel"),
-                     ("csrc/rx_dense.cu", "ops/pallas_rx.py:_rx_kernel"),
-                     ("ops/cuda_tx.py", "ops/pallas_tx.py:_tx_kernel"),
-                     ("ops/cuda_rx.py", "ops/pallas_rx.py:_rx_kernel")):
+    for src, tpu in (
+            ("csrc/tx_dense.cu", "ops/pallas_tx.py:_tx_kernel"),
+            ("csrc/tx_factored.cu", "ops/pallas_tx.py:_tx_kernel_factored"),
+            ("csrc/rx_dense.cu", "ops/pallas_rx.py:_rx_kernel"),
+            ("csrc/rx_hybrid.cu", "ops/pallas_rx.py:_rx_kernel"),
+            ("ops/cuda_tx.py", "ops/pallas_tx.py:_tx_kernel_factored"),
+            ("ops/cuda_rx.py", "ops/pallas_rx.py:_rx_kernel")):
         text = (root / src).read_text()
         assert tpu in text, src
         assert "H100" in text, src
-    for mod in ("ops/cuda_tx.py", "ops/cuda_rx.py"):
+    for mod, counts in (("ops/cuda_tx.py", ("DENSE_LAUNCHES",
+                                            "FACTORED_LAUNCHES")),
+                        ("ops/cuda_rx.py", ("DENSE_LAUNCHES",
+                                            "HYBRID_LAUNCHES"))):
         tree = ast.parse((root / mod).read_text())
         names = {t.id for node in ast.walk(tree)
                  if isinstance(node, ast.Assign) for t in node.targets
                  if isinstance(t, ast.Name)}
-        assert "KERNEL_LAUNCHES" in names, mod
+        assert {"KERNEL_LAUNCHES", *counts} <= names, mod

@@ -78,9 +78,18 @@ def test_tx_base_chirp_bit_equal(n, bs):
 
 
 def test_tx_tone_tables_factored_bit_equal():
-    for a, b in zip(tchirp._tx_tone_tables_factored(1024, 128),
-                    jchirp._tx_tone_tables_factored(1024, 128)):
-        _bit_equal(a, b)
+    """The digit tables at every factored size, and the factored kernel's
+    layout of them (w2 columns rolled by -1, ``pallas_tx.py:259-260``)."""
+    from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
+        cuda_tx)
+    for n in (1024, 2048, 4096):
+        jt = jchirp._tx_tone_tables_factored(n, 128)
+        for a, b in zip(tchirp._tx_tone_tables_factored(n, 128), jt):
+            _bit_equal(a, b)
+        want = (jt[0], jt[1], np.roll(jt[2], -1, axis=1),
+                np.roll(jt[3], -1, axis=1))
+        for a, b in zip(cuda_tx._tx_digit_tables(n), want):
+            _bit_equal(a, b)
 
 
 @pytest.mark.parametrize("sf,bs,osr", [(7, 1, 1), (8, 1, 1), (9, 2, 1),
@@ -463,3 +472,56 @@ def test_estimate_offsets_matches_jax():
                                np.asarray(je.time_offset), atol=1e-3)
     with pytest.raises(terrors.InvalidArgumentError):
         T.estimate_offsets(torch.zeros(1, 10), torch.zeros(1, 10), tp)
+
+
+# ---------------------------------------------------------------------------
+# compensate_offsets and the demodulate error contract
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("offs", [[0.2, 3.0, -5.0, 40.0],
+                                  [-0.4, -64.0, 63.6, 7.0]])
+def test_compensate_offsets_matches_jax(offs):
+    """Shifts of 0, positive, negative and |off| >= count (left unshifted),
+    batched and unbatched: zero fill exact, IQ within 2e-6."""
+    jp = J.LoraParams(sf=5)
+    tp = T.LoraParams(sf=5)
+    count = 40
+    rng = np.random.default_rng(abs(int(offs[1])))
+    r = rng.standard_normal((4, count)).astype(np.float32)
+    i = rng.standard_normal((4, count)).astype(np.float32)
+    cfo = rng.uniform(-0.02, 0.02, 4).astype(np.float32)
+    t_off = np.asarray(offs, np.float32)
+    je = jmodem.OffsetEstimate(jnp.asarray(cfo), jnp.asarray(t_off))
+    te = tmodem.OffsetEstimate(torch.as_tensor(cfo), torch.as_tensor(t_off))
+    jr, ji = J.compensate_offsets(jnp.asarray(r), jnp.asarray(i), jp, je)
+    gr, gi = T.compensate_offsets(torch.as_tensor(r), torch.as_tensor(i), tp,
+                                  te)
+    np.testing.assert_allclose(_np(gr), np.asarray(jr), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(_np(gi), np.asarray(ji), atol=2e-6, rtol=0)
+    np.testing.assert_array_equal(_np(gr) == 0, np.asarray(jr) == 0)
+    for b in range(4):
+        ur, ui = T.compensate_offsets(
+            torch.as_tensor(r[b]), torch.as_tensor(i[b]), tp,
+            tmodem.OffsetEstimate(torch.as_tensor(cfo[b]),
+                                  torch.as_tensor(t_off[b])))
+        assert torch.equal(ur, gr[b]) and torch.equal(ui, gi[b])
+
+
+def test_demodulate_error_contract():
+    """A partial symbol -> InvalidArgumentError; fewer than two symbols or
+    more data symbols than ``symbol_cap`` -> RangeError, as in JAX."""
+    tp = T.LoraParams(sf=7)
+    z = torch.zeros(1, 5 * tp.n)
+    with pytest.raises(terrors.InvalidArgumentError):
+        T.demodulate(z[:, :-1], z[:, :-1], tp)
+    with pytest.raises(terrors.RangeError):
+        T.demodulate(z[:, :tp.n], z[:, :tp.n], tp)
+    with pytest.raises(terrors.RangeError, match="cap"):
+        T.demodulate(z, z, tp, symbol_cap=2)
+    res = T.demodulate(z, z, tp, symbol_cap=3)
+    assert res.symbols.shape == (1, 3) and res.symbols.dtype == torch.int32
+    assert res.power.shape == (1, 5)
+    jp = J.LoraParams(sf=7)
+    with pytest.raises(jerrors.RangeError, match="cap"):
+        J.demodulate(jnp.zeros((1, 5 * jp.n)), jnp.zeros((1, 5 * jp.n)), jp,
+                     symbol_cap=2)

@@ -126,13 +126,15 @@ def test_demodulate_tones_without_sync_symbols():
     assert (tres.sync_word.numpy() == 0).all()
 
 
-@pytest.mark.parametrize("sf,bw", [(7, 125000), (9, 250000)])
+@pytest.mark.parametrize("sf,bw", [(7, 125000), (9, 250000), (11, 500000),
+                                   (12, 125000)])
 def test_modulate_dechirped_matches_jax(sf, bw):
-    """The plain TX kernel version with the folded down-chirp against
-    JAX's modulate then dechirp: within 4e-6 (tests/test_pallas.py:299)."""
+    """The plain TX kernel version with the folded down-chirp (dense
+    tables to sf9, factored digit tables at sf11/12) against JAX's
+    modulate then dechirp: within 4e-6 (tests/test_pallas.py:299)."""
     jp = J.LoraParams(sf=sf, bw=bw)
     tp = T.params_from_reference(jp)
-    syms = np.random.default_rng(sf).integers(0, 256, (4, 12)).astype(
+    syms = np.random.default_rng(sf).integers(0, 1 << sf, (4, 12)).astype(
         np.uint16)
     wr, wi = J.modulate_dechirped(syms, jp)
     gr, gi = T.modulate_dechirped(syms, tp)
@@ -204,6 +206,60 @@ def test_payload_roundtrip_from_reference_iq(path):
 
 
 # ---------------------------------------------------------------------------
+# Full RX (demodulate) and the offset probe against the reference and JAX
+# (tests/test_parity.py:30-41,141-159)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("path", FIXTURES, ids=lambda p: p.stem)
+def test_full_path_demod_bit_exact(path):
+    """``demodulate`` on the reference's IQ reproduces the reference's own
+    demod output (osr 2 and Hann included, on the CPU plain path), and
+    JAX's ``demodulate``: symbols and sync exact, CFO within 1e-5, timing
+    within 1e-3 samples, dB within 0.05."""
+    d = np.load(path)
+    p = _fixture_params(d)
+    jp = J.LoraParams(sf=p.sf, bw=p.bw, osr=p.osr, window=p.window.value)
+    rr, ri = T.from_complex(d["iq"][None])
+    res = T.demodulate(rr, ri, p)
+    mine = res.symbols.numpy()[0]
+    np.testing.assert_array_equal(mine, d["demod"][: len(mine)])
+    jres = J.demodulate(*J.from_complex(d["iq"][None]), jp)
+    np.testing.assert_array_equal(res.symbols.numpy(),
+                                  np.asarray(jres.symbols))
+    np.testing.assert_array_equal(res.sync_word.numpy(),
+                                  np.asarray(jres.sync_word))
+    np.testing.assert_allclose(res.cfo.numpy(), np.asarray(jres.cfo),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(res.time_offset.numpy(),
+                               np.asarray(jres.time_offset), atol=1e-3,
+                               rtol=0)
+    for f in ("power", "power_avg"):
+        np.testing.assert_allclose(getattr(res, f).numpy(),
+                                   np.asarray(getattr(jres, f)), atol=0.05,
+                                   rtol=0)
+
+
+OFFSET_FIXTURES = sorted(VEC_DIR.glob("ref_offsets_*.npz"))
+
+
+@pytest.mark.parametrize("path", OFFSET_FIXTURES, ids=lambda p: p.stem)
+def test_estimate_and_compensate_offsets_parity(path):
+    """estimate_offsets + compensate_offsets against the reference probe on
+    the same impaired IQ (phy.cpp:81-180), with the tolerances of
+    tests/test_parity.py:141-159."""
+    d = np.load(path)
+    p = T.LoraParams(sf=int(d["sf"]))
+    rr, ri = T.from_complex(d["iq"])
+    est = T.estimate_offsets(rr, ri, p)
+    assert abs(float(est.cfo) - float(d["ref_cfo"])) < 2e-5
+    assert abs(float(est.time_offset) - float(d["ref_time_offset"])) < 1e-3
+    cr, ci = T.compensate_offsets(rr, ri, p, est)
+    want = d["compensated"]
+    np.testing.assert_allclose(cr.numpy(), want.real, atol=2e-4)
+    np.testing.assert_allclose(ci.numpy(), want.imag, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
 # The port never imports jax
 # ---------------------------------------------------------------------------
 
@@ -244,6 +300,7 @@ def test_public_names():
                  "STOCK_PROFILES", "errors", "encode", "decode", "modulate",
                  "modulate_dechirped", "estimate_offsets", "dechirp",
                  "to_complex", "from_complex", "crc_sx1272", "DemodResult",
-                 "OffsetEstimate", "demodulate_tones"):
+                 "OffsetEstimate", "demodulate_tones", "demodulate",
+                 "compensate_offsets"):
         assert hasattr(T, name), name
         assert name == "params_from_reference" or hasattr(J, name), name

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's sf7 slice, on one CUDA card.
+"""Where the time goes in the PyTorch port's packet slice, on one CUDA card.
 
 Run from the root of a checkout:
 
-    python3 tools/profile_slice.py [--packets 8192] [--iters 5]
-                                   [--out chiprun_out/profile_sf7.txt]
+    python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--packets 8192]
+                                   [--iters 5] [--out PATH]
 
 It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
-sf7/BW125/CR4-5 on random 32-byte payloads (the batch of ``chip_smoke.py``
-phase 4) and reports, all from one process:
+the given sf and bandwidth, CR4-5, on random 32-byte payloads (by default
+the sf7 batch of ``chip_smoke.py`` phase 4; ``--sf 12 --packets 256`` is
+its phase 5) and reports, all from one process:
 
 - wall ms per iteration: CUDA events over ``--iters`` iterations after a
   warm-up, without the profiler;
@@ -23,7 +24,8 @@ phase 4) and reports, all from one process:
   over ``--iters`` iterations.
 
 The report starts with the ``nvidia-smi`` name/power-limit line, is
-printed, and is written to ``--out``.  It exits nonzero without a CUDA
+printed, and is written to ``--out`` (default
+``build/profile_sf<sf>.txt``).  It exits nonzero without a CUDA
 card or when the profiler records no device activity.
 """
 from __future__ import annotations
@@ -105,16 +107,18 @@ def _device_activity(run, iters: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sf", type=int, default=7)
+    ap.add_argument("--bw", type=int, default=125000)
     ap.add_argument("--packets", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--out", default="chiprun_out/profile_sf7.txt")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    p = lora.LoraParams(sf=7, bw=125000, cr="4/5")
+    p = lora.LoraParams(sf=args.sf, bw=args.bw, cr="4/5")
     rng = np.random.default_rng(args.seed)
     payload = torch.as_tensor(
         rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
@@ -153,8 +157,9 @@ def main() -> int:
 
     lines = [
         _smi(),
-        f"torch {torch.__version__} cuda {torch.version.cuda}; sf7, "
-        f"{args.packets} packets x {PAYLOAD} B, {args.iters} iterations",
+        f"torch {torch.__version__} cuda {torch.version.cuda}; sf{args.sf} "
+        f"BW{args.bw // 1000}, {args.packets} packets x {PAYLOAD} B, "
+        f"{args.iters} iterations",
         f"wall per iteration {wall:.3f} ms (CUDA events, no profiler); "
         f"device busy {busy:.3f} ms per iteration ({launches:.0f} device "
         f"activities); idle share {1.0 - busy / wall:.3f}",
@@ -169,7 +174,7 @@ def main() -> int:
                      f"{statistics.median(tot):8.3f}")
     report = "\n".join(lines)
     print(report)
-    out = Path(args.out)
+    out = Path(args.out or f"build/profile_sf{args.sf}.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(report + "\n")
     return 0

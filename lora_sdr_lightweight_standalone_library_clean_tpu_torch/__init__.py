@@ -3,16 +3,18 @@
 A PyTorch re-implementation of ``lora_sdr_lightweight_standalone_library_
 clean_tpu`` for one NVIDIA H100, kept beside it with the same layout
 (``utils/``, ``ops/``, ``models/``) and function names.  It imports torch
-and numpy and never jax.  The device of the input decides the path: CPU
-tensors run plain PyTorch; CUDA tensors run the hand-written Hopper
-kernels in ``csrc/`` (built by ``utils/cuda_build.py`` at first use) or
-raise ``NotImplementedError`` where no kernel is ported yet.
+and numpy and never jax.  The entry points run on the card unless the
+caller asks for the CPU: host data (numpy arrays, lists) and
+``from_complex`` go to the CUDA card, and raise without one; CPU tensors,
+or ``device="cpu"``, run plain PyTorch.  CUDA tensors run the hand-written
+Hopper kernels in ``csrc/`` (built by ``utils/cuda_build.py`` at first
+use) wherever the JAX package runs a Pallas kernel on the TPU.
 
-It covers osr == 1 from sf2 to sf12 on the card: the packet pipeline
-``encode -> modulate_dechirped -> demodulate_tones -> decode`` and the
-full-RX entry point ``modulate -> demodulate`` (with ``estimate_offsets``
-and ``compensate_offsets``).  On the CPU every entry point also runs at
-osr > 1.
+It covers sf2 to sf12 on the card: the packet pipeline ``encode ->
+modulate_dechirped -> demodulate_tones -> decode`` and the full-RX entry
+point ``modulate -> demodulate`` (with ``estimate_offsets`` and
+``compensate_offsets``) at any osr, and the injective wide receiver
+``demodulate_wide`` for BW250/500 at osr >= bw_scale.
 """
 from .utils.config import (LoraParams, Window, load_profiles,
                            params_from_profile, params_from_reference,
@@ -20,8 +22,8 @@ from .utils.config import (LoraParams, Window, load_profiles,
 from .utils import errors
 from .models.modem import (
     encode, decode, modulate, modulate_dechirped, estimate_offsets,
-    compensate_offsets, demodulate, dechirp, to_complex, from_complex,
-    crc_sx1272, DemodResult, OffsetEstimate,
+    compensate_offsets, demodulate, demodulate_wide, dechirp, to_complex,
+    from_complex, crc_sx1272, DemodResult, OffsetEstimate,
 )
 from .models.tones import demodulate_tones
 

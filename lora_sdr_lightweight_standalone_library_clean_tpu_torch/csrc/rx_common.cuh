@@ -1,7 +1,13 @@
-// Pieces shared by the fused RX kernels (rx_dense.cu, rx_hybrid.cu): the
-// window of one (packet, symbol), its samples rotated and multiplied with
-// the plain PyTorch version's rounding, the first-max rule and the dB
-// epilogue.  Steps (a), (b) and (d) of rx_dense.cu's header.
+// Pieces shared by the fused RX kernels (rx_dense.cu, rx_hybrid.cu,
+// rx_osr.cu): the window of one (packet, symbol), its samples rotated and
+// multiplied with the plain PyTorch version's rounding, the first-max rule
+// and the dB epilogue.  Steps (a), (b) and (d) of rx_dense.cu's header.
+//
+// Two window readers instantiate the kernels.  DirectReader is the osr == 1
+// window (window_of).  OsrReader (window_of_osr) is the
+// decimated osr > 1 window and the halo variant of the TPU kernel's
+// padded/slab and direct forms (ops/pallas_rx.py:_shifted_windows,
+// _shifted_windows_direct); rx_osr.cu launches it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,14 +29,15 @@ __device__ __forceinline__ bool takes(float v, int k, float bv, int bk) {
 struct Window {
   const float* row_r;   // first sample of the timing-shifted window
   const float* row_i;
+  int stride;           // stream samples between window samples (osr)
   float rate;           // CFO derotation rate per sample
   float scale;          // per-packet amplitude normalisation
-  float start;          // rotation phase of sample 0: rate * (s*n + t)
+  float start;          // rotation phase of sample 0
 };
 
 // (a) window `win` = b * S + s of n samples: stream[b, s*n + t + i] with
 // the reference's edge clamp (phy.cpp:209-216): symbol 0 reads unshifted
-// when t < 0, symbol S-1 when t > 0.
+// when t < 0, symbol S-1 when t > 0.  start = rate * (s*n + t).
 __device__ __forceinline__ Window window_of(
     const float* __restrict__ sr, const float* __restrict__ si,
     const int* __restrict__ t_off, const float* __restrict__ rate,
@@ -44,11 +51,70 @@ __device__ __forceinline__ Window window_of(
   Window w;
   w.row_r = sr + base + (unshifted ? 0 : t);
   w.row_i = si + base + (unshifted ? 0 : t);
+  w.stride = 1;
   w.rate = rate[b];
   w.scale = scale[b];
   w.start = __fmul_rn(w.rate, (float)(s * n + t));
   return w;
 }
+
+// (a') #6: emitted window `win` = b * nd + e reads stream row s = h0 + e of
+// S rows of step = n*osr samples: sample i = stream[b, s*step + t + i*osr]
+// (decimation phase t mod osr, shift floor(t/osr) in the decimated
+// domain), clamped with |t| <= step.  The edge clamp keys on the stream
+// row: row 0 when t < 0 and row S-1 when t > 0 read the unshifted symbol
+// at phase 0, stream[b, s*step + i*osr] (the reference decimates its
+// unshifted base at phase 0).  The rotation starts at
+// rate * (e*n + t/osr), one add as in the plain version, with the EMITTED
+// row index e: the TPU kernel's s_col counts the detected rows of a halo
+// call from 0 (ops/pallas_rx.py:551,632).
+__device__ __forceinline__ Window window_of_osr(
+    const float* __restrict__ sr, const float* __restrict__ si,
+    const int* __restrict__ t_off, const float* __restrict__ rate,
+    const float* __restrict__ scale, int win, int nd, int S, int n,
+    int osr, int h0) {
+  const int b = win / nd;
+  const int e = win - b * nd;
+  const int s = e + h0;
+  const int step = n * osr;
+  int t = t_off[b];
+  t = t < -step ? -step : (t > step ? step : t);
+  const bool unshifted = (s == 0 && t < 0) || (s == S - 1 && t > 0);
+  const size_t base = (size_t)b * S * step + (size_t)s * step;
+  Window w;
+  w.row_r = sr + base + (unshifted ? 0 : t);
+  w.row_i = si + base + (unshifted ? 0 : t);
+  w.stride = osr;
+  w.rate = rate[b];
+  w.scale = scale[b];
+  w.start = __fmul_rn(w.rate, __fadd_rn((float)(e * n),
+                                        __fdiv_rn((float)t, (float)osr)));
+  return w;
+}
+
+// The osr == 1 reader: S windows per packet.
+struct DirectReader {
+  int S;
+  __host__ __device__ int rows() const { return S; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    return window_of(sr, si, t_off, rate, scale, win, S, n);
+  }
+};
+
+// The #6 reader: nd = S - h0 - h1 windows per packet out of S stream rows.
+struct OsrReader {
+  int nd, S, osr, h0;
+  __host__ __device__ int rows() const { return nd; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    return window_of_osr(sr, si, t_off, rate, scale, win, nd, S, n, osr, h0);
+  }
+};
 
 // (b) sample i: x * scale * e^{j(start + rate*i)} * mult[i], each product
 // rounded as the plain version rounds it (no contraction into FMAs), with
@@ -57,8 +123,8 @@ __device__ __forceinline__ Window window_of(
 __device__ __forceinline__ void rotated_sample(
     const Window& w, const float* __restrict__ mr,
     const float* __restrict__ mi, int i, float* out_r, float* out_i) {
-  const float zr = __fmul_rn(__ldg(w.row_r + i), w.scale);
-  const float zi = __fmul_rn(__ldg(w.row_i + i), w.scale);
+  const float zr = __fmul_rn(__ldg(w.row_r + i * w.stride), w.scale);
+  const float zi = __fmul_rn(__ldg(w.row_i + i * w.stride), w.scale);
   const float ph = __fadd_rn(w.start, __fmul_rn(w.rate, (float)i));
   float sn, cs;
   sincosf(ph, &sn, &cs);
@@ -82,5 +148,20 @@ __device__ __forceinline__ void store_detection(
   pw_out[win] = 20.f * log10f(fund) - scale_db;
   pav_out[win] = 20.f * log10f(noise) - scale_db;
 }
+
+// Host launchers of the OsrReader instances, defined beside their kernels
+// (rx_dense.cu for n <= 512, rx_hybrid.cu for n = 1024 ... 16384) and
+// called by rx_osr.cu.  Each returns the cudaError_t of the launch.
+int launch_dense_osr(const float* sr, const float* si, const int* t_off,
+                     const float* rate, const float* scale, const float* mr,
+                     const float* mi, const float* twr, const float* twi,
+                     int B, const OsrReader& rd, int n, float scale_db,
+                     int* idx, float* pw, float* pav, cudaStream_t stream);
+int launch_hybrid_osr(const float* sr, const float* si, const int* t_off,
+                      const float* rate, const float* scale,
+                      const float* mr, const float* mi, const float* twr,
+                      const float* twi, int B, const OsrReader& rd, int n,
+                      float scale_db, int* idx, float* pw, float* pav,
+                      cudaStream_t stream);
 
 }  // namespace lora_rx

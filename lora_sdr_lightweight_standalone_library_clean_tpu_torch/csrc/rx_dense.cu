@@ -1,10 +1,12 @@
-// Fused packet RX (osr == 1, n = 4 ... 512) for Hopper (sm_90a).
+// Fused packet RX (n = 4 ... 512) for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_rx.py:_rx_kernel (called through _rx_call /
 //   rx_window_detect) in its osr == 1 direct-window form
 //   (_shifted_windows_direct), with the dense branch of _dft_mag_argmax and
-//   the dB epilogue of _ablated_detect.
+//   the dB epilogue of _ablated_detect.  Its OsrReader instances
+//   (rx_common.cuh, launched by rx_osr.cu) are the decimated osr > 1 and
+//   halo windows of the same kernel (padded/slab form, _shifted_windows).
 //
 // What it computes, per (packet b, symbol s) window of n samples:
 //   (a) the timing-shifted window x[i] = stream[b, s*n + t + i], with the
@@ -31,7 +33,7 @@
 // fewer than 32 threads (n <= 32), the warp reduction runs in segments of
 // n/2 lanes, so it never mixes two windows.  Steps (a), (b) and the dB
 // epilogue of (d) live in rx_common.cuh, shared with rx_hybrid.cu (n =
-// 1024 ... 4096).
+// 1024 ... 16384).
 #include <cuda_runtime.h>
 #include <climits>
 
@@ -52,7 +54,7 @@ struct RxShape {
   static constexpr int kLog = ilog2(N);
 };
 
-template <int N>
+template <int N, class Reader>
 __global__ void __launch_bounds__(RxShape<N>::kThreads)
 rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                 const int* __restrict__ t_off,
@@ -60,7 +62,7 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                 const float* __restrict__ scale,
                 const float* __restrict__ mr, const float* __restrict__ mi,
                 const float* __restrict__ twr,
-                const float* __restrict__ twi, int n_windows, int S,
+                const float* __restrict__ twi, int n_windows, Reader rd,
                 float scale_db, int* __restrict__ idx_out,
                 float* __restrict__ pw_out, float* __restrict__ pav_out) {
   using Shape = RxShape<N>;
@@ -81,8 +83,7 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
   // (a) + (b): load, normalise, rotate, multiply; store bit-reversed for
   // the decimation-in-time FFT below.
   if (valid) {
-    const lora_rx::Window w =
-        lora_rx::window_of(sr, si, t_off, rate, scale, win, S, N);
+    const lora_rx::Window w = rd(sr, si, t_off, rate, scale, win, N);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = lt + h * H;
@@ -164,22 +165,51 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
   }
 }
 
-template <int N>
+template <int N, class Reader>
 int launch_rx(const float* sr, const float* si, const int* t_off,
               const float* rate, const float* scale, const float* mr,
               const float* mi, const float* twr, const float* twi, int B,
-              int S, float scale_db, int* idx, float* pw, float* pav,
-              cudaStream_t stream) {
+              const Reader& rd, float scale_db, int* idx, float* pw,
+              float* pav, cudaStream_t stream) {
   using Shape = RxShape<N>;
-  const long long windows = (long long)B * S;
+  const long long windows = (long long)B * rd.rows();
   if (windows == 0) return (int)cudaSuccess;
   if (windows > INT_MAX) return (int)cudaErrorInvalidValue;
   const long long blocks =
       (windows + Shape::kWindows - 1) / Shape::kWindows;
-  rx_dense_kernel<N><<<(unsigned)blocks, Shape::kThreads, 0, stream>>>(
-      sr, si, t_off, rate, scale, mr, mi, twr, twi, (int)windows, S,
+  rx_dense_kernel<N, Reader><<<(unsigned)blocks, Shape::kThreads, 0,
+                               stream>>>(
+      sr, si, t_off, rate, scale, mr, mi, twr, twi, (int)windows, rd,
       scale_db, idx, pw, pav);
   return (int)cudaGetLastError();
+}
+
+// n -> launch_rx<n, Reader>, or cudaErrorInvalidValue for a size this
+// kernel does not take.
+template <class Reader>
+int dispatch(const float* sr, const float* si, const int* t_off,
+             const float* rate, const float* scale, const float* mr,
+             const float* mi, const float* twr, const float* twi, int B,
+             const Reader& rd, int n, float scale_db, int* idx, float* pw,
+             float* pav, cudaStream_t stream) {
+#define LORA_RX_CASE(NN)                                                    \
+  case NN:                                                                  \
+    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, twr,   \
+                                 twi, B, rd, scale_db, idx, pw, pav,        \
+                                 stream);
+  switch (n) {
+    LORA_RX_CASE(4)
+    LORA_RX_CASE(8)
+    LORA_RX_CASE(16)
+    LORA_RX_CASE(32)
+    LORA_RX_CASE(64)
+    LORA_RX_CASE(128)
+    LORA_RX_CASE(256)
+    LORA_RX_CASE(512)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LORA_RX_CASE
 }
 
 }  // namespace
@@ -196,25 +226,20 @@ extern "C" int lora_rx_dense(const void* sr, const void* si,
                              float scale_db, void* idx, void* pw, void* pav,
                              void* stream) {
   if (B < 0 || S <= 0) return (int)cudaErrorInvalidValue;
-#define LORA_RX_CASE(NN)                                                    \
-  case NN:                                                                  \
-    return launch_rx<NN>((const float*)sr, (const float*)si,                \
-                         (const int*)t_off, (const float*)rate,             \
-                         (const float*)scale, (const float*)mr,             \
-                         (const float*)mi, (const float*)twr,               \
-                         (const float*)twi, B, S, scale_db, (int*)idx,      \
-                         (float*)pw, (float*)pav, (cudaStream_t)stream);
-  switch (n) {
-    LORA_RX_CASE(4)
-    LORA_RX_CASE(8)
-    LORA_RX_CASE(16)
-    LORA_RX_CASE(32)
-    LORA_RX_CASE(64)
-    LORA_RX_CASE(128)
-    LORA_RX_CASE(256)
-    LORA_RX_CASE(512)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LORA_RX_CASE
+  return dispatch((const float*)sr, (const float*)si, (const int*)t_off,
+                  (const float*)rate, (const float*)scale, (const float*)mr,
+                  (const float*)mi, (const float*)twr, (const float*)twi, B,
+                  lora_rx::DirectReader{S}, n, scale_db, (int*)idx,
+                  (float*)pw, (float*)pav, (cudaStream_t)stream);
+}
+
+int lora_rx::launch_dense_osr(const float* sr, const float* si,
+                              const int* t_off, const float* rate,
+                              const float* scale, const float* mr,
+                              const float* mi, const float* twr,
+                              const float* twi, int B, const OsrReader& rd,
+                              int n, float scale_db, int* idx, float* pw,
+                              float* pav, cudaStream_t stream) {
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+                  scale_db, idx, pw, pav, stream);
 }

@@ -1,11 +1,16 @@
-// Fused packet RX for large windows (osr == 1, n = 1024 ... 4096) for
-// Hopper (sm_90a).
+// Fused packet RX for large windows (n = 1024 ... 16384) for Hopper
+// (sm_90a).
 //
 // Replaces the JAX package's TPU kernel
 //   ops/pallas_rx.py:_rx_kernel (called through _rx_call /
 //   rx_window_detect) in its osr == 1 direct-window form with the hybrid
 //   branch of _dft_mag_argmax (_hybrid_consts, _slice_tw_consts) and the
-//   dB epilogue of _ablated_detect.
+//   dB epilogue of _ablated_detect: n = 1024 ... 4096 for the decimated
+//   receivers, n = 8192 and 16384 for the wide receiver, whose
+//   (n*osr)-point detection is this form with n = step
+//   (rx_window_detect(wide=True), ops/pallas_rx.py:831-834).  Its
+//   OsrReader instances (rx_common.cuh, launched by rx_osr.cu) are the
+//   decimated osr > 1 and halo windows of the same kernel.
 //
 // What it computes, per (packet b, symbol s) window of n samples: steps
 // (a)-(d) of rx_dense.cu (rx_common.cuh holds the shared pieces): the
@@ -25,13 +30,13 @@
 // n/1024 butterflies per stage and n/512 samples on load and in the
 // reduction.  The two planes live in dynamic shared memory, 2 x n x 4 B =
 // 8/16/32 KB per block, under the 48 KB a launch may take without
-// cudaFuncSetAttribute; 8192/16384 (64/128 KB, the wide receiver) need
-// only that attribute and their instances.
+// cudaFuncSetAttribute; 8192/16384 (64/128 KB) set that attribute before
+// their launch, and at 16384 one block fits an SM (512 threads).
 //
 // What bounds it on the H100.  The floor is the one read of the stream,
 // 8 B per sample (554 MB for 256 sf12 packets of 66 symbols, about
 // 0.17 ms at 3.35 TB/s); each window writes 12 B.  This simple design sits
-// instead on its log2(n) = 10-12 barrier-separated shared-memory stages
+// instead on its log2(n) = 10-14 barrier-separated shared-memory stages
 // and the accurate sincosf per sample; making it fast is later work.
 #include <cuda_runtime.h>
 #include <climits>
@@ -45,7 +50,7 @@ using lora_rx::takes;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 
-template <int N>
+template <int N, class Reader>
 __global__ void __launch_bounds__(kThreads)
 rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                  const int* __restrict__ t_off,
@@ -53,7 +58,7 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                  const float* __restrict__ scale,
                  const float* __restrict__ mr, const float* __restrict__ mi,
                  const float* __restrict__ twr,
-                 const float* __restrict__ twi, int S, float scale_db,
+                 const float* __restrict__ twi, Reader rd, float scale_db,
                  int* __restrict__ idx_out, float* __restrict__ pw_out,
                  float* __restrict__ pav_out) {
   constexpr int kSamples = N / kThreads;        // samples per thread
@@ -71,8 +76,7 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
 
   // (a) + (b): load, normalise, rotate, multiply; store bit-reversed for
   // the decimation-in-time FFT below.
-  const lora_rx::Window w =
-      lora_rx::window_of(sr, si, t_off, rate, scale, win, S, N);
+  const lora_rx::Window w = rd(sr, si, t_off, rate, scale, win, N);
 #pragma unroll
   for (int h = 0; h < kSamples; ++h) {
     const int i = lt + h * kThreads;
@@ -155,20 +159,52 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
   }
 }
 
-template <int N>
+template <int N, class Reader>
 int launch_rx(const float* sr, const float* si, const int* t_off,
               const float* rate, const float* scale, const float* mr,
               const float* mi, const float* twr, const float* twi, int B,
-              int S, float scale_db, int* idx, float* pw, float* pav,
-              cudaStream_t stream) {
-  const long long windows = (long long)B * S;
+              const Reader& rd, float scale_db, int* idx, float* pw,
+              float* pav, cudaStream_t stream) {
+  const long long windows = (long long)B * rd.rows();
   if (windows == 0) return (int)cudaSuccess;
   if (windows > INT_MAX) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * N * sizeof(float);
-  rx_hybrid_kernel<N><<<(unsigned)windows, kThreads, smem, stream>>>(
-      sr, si, t_off, rate, scale, mr, mi, twr, twi, S, scale_db, idx, pw,
+  if (smem > 48 * 1024) {
+    // above 48 KB a launch is refused unless the kernel opted in first
+    const cudaError_t e = cudaFuncSetAttribute(
+        rx_hybrid_kernel<N, Reader>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  rx_hybrid_kernel<N, Reader><<<(unsigned)windows, kThreads, smem, stream>>>(
+      sr, si, t_off, rate, scale, mr, mi, twr, twi, rd, scale_db, idx, pw,
       pav);
   return (int)cudaGetLastError();
+}
+
+// n -> launch_rx<n, Reader>, or cudaErrorInvalidValue for a size this
+// kernel does not take.
+template <class Reader>
+int dispatch(const float* sr, const float* si, const int* t_off,
+             const float* rate, const float* scale, const float* mr,
+             const float* mi, const float* twr, const float* twi, int B,
+             const Reader& rd, int n, float scale_db, int* idx, float* pw,
+             float* pav, cudaStream_t stream) {
+#define LORA_RX_CASE(NN)                                                    \
+  case NN:                                                                  \
+    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, twr,   \
+                                 twi, B, rd, scale_db, idx, pw, pav,        \
+                                 stream);
+  switch (n) {
+    LORA_RX_CASE(1024)
+    LORA_RX_CASE(2048)
+    LORA_RX_CASE(4096)
+    LORA_RX_CASE(8192)
+    LORA_RX_CASE(16384)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LORA_RX_CASE
 }
 
 }  // namespace
@@ -185,20 +221,20 @@ extern "C" int lora_rx_hybrid(const void* sr, const void* si,
                               float scale_db, void* idx, void* pw, void* pav,
                               void* stream) {
   if (B < 0 || S <= 0) return (int)cudaErrorInvalidValue;
-#define LORA_RX_CASE(NN)                                                    \
-  case NN:                                                                  \
-    return launch_rx<NN>((const float*)sr, (const float*)si,                \
-                         (const int*)t_off, (const float*)rate,             \
-                         (const float*)scale, (const float*)mr,             \
-                         (const float*)mi, (const float*)twr,               \
-                         (const float*)twi, B, S, scale_db, (int*)idx,      \
-                         (float*)pw, (float*)pav, (cudaStream_t)stream);
-  switch (n) {
-    LORA_RX_CASE(1024)
-    LORA_RX_CASE(2048)
-    LORA_RX_CASE(4096)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LORA_RX_CASE
+  return dispatch((const float*)sr, (const float*)si, (const int*)t_off,
+                  (const float*)rate, (const float*)scale, (const float*)mr,
+                  (const float*)mi, (const float*)twr, (const float*)twi, B,
+                  lora_rx::DirectReader{S}, n, scale_db, (int*)idx,
+                  (float*)pw, (float*)pav, (cudaStream_t)stream);
+}
+
+int lora_rx::launch_hybrid_osr(const float* sr, const float* si,
+                               const int* t_off, const float* rate,
+                               const float* scale, const float* mr,
+                               const float* mi, const float* twr,
+                               const float* twi, int B, const OsrReader& rd,
+                               int n, float scale_db, int* idx, float* pw,
+                               float* pav, cudaStream_t stream) {
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+                  scale_db, idx, pw, pav, stream);
 }

@@ -7,12 +7,15 @@ Every function is a plain function on tensors, batched over leading axes
 planes (re, im) at every public function, as in the JAX package.
 
 The device of the input decides the path.  On a CPU tensor ``modulate``,
-``modulate_dechirped`` and ``demodulate`` run the plain PyTorch versions; on
-a CUDA tensor they launch the hand-written TX kernels (``ops/cuda_tx.py``)
-and RX kernels (``ops/cuda_rx.py``) and raise ``NotImplementedError`` where
-those do not reach (osr > 1).  The codec, the CFO/timing estimator,
-``compensate_offsets`` and ``dechirp`` are plain tensor code on either
-device, as they are plain XLA code in the JAX package.
+``modulate_dechirped``, ``demodulate`` and ``demodulate_wide`` run the plain
+PyTorch versions; on a CUDA tensor they launch the hand-written TX kernels
+(``ops/cuda_tx.py``) and RX kernels (``ops/cuda_rx.py``) wherever the JAX
+package runs a kernel on the TPU, osr > 1 and the wide receiver included.
+Host data (numpy arrays, lists) runs on the card; a CPU tensor or
+``device="cpu"`` asks for the CPU (``utils/tensors.py::host_device``).  The
+codec, the CFO/timing estimator, ``compensate_offsets`` and ``dechirp`` are
+plain tensor code on either device, as they are plain XLA code in the JAX
+package.
 
 Symbols are int32 tensors (the JAX package's uint16 values; torch's uint16
 type supports too few operations on CUDA), decoded bytes uint8, CRCs int32.
@@ -24,6 +27,8 @@ Reference parity map:
  - ``estimate_offsets``   -> phy.cpp:81-148
  - ``compensate_offsets`` -> phy.cpp:150-180
  - ``demodulate``         -> phy.cpp:182-243
+ - ``demodulate_wide``    -> the injective BW-250/500 receiver the
+                             reference lacks (JAX models/modem.py:539-722)
 """
 from __future__ import annotations
 
@@ -39,13 +44,13 @@ from ..ops.cuda_rx import rx_window_detect
 from ..ops.detect import detect_ri
 from ..utils.config import LoraParams, Window
 from ..utils.errors import InvalidArgumentError, RangeError
-from ..utils.tensors import device_table, int_tensor
+from ..utils.tensors import device_table, host_device, int_tensor
 
 __all__ = [
     "DemodResult", "OffsetEstimate",
     "encode", "decode", "crc_sx1272",
     "modulate", "modulate_dechirped", "estimate_offsets",
-    "compensate_offsets", "demodulate",
+    "compensate_offsets", "demodulate", "demodulate_wide",
     "window_table", "to_complex", "from_complex", "dechirp",
 ]
 
@@ -235,16 +240,18 @@ def modulate_dechirped(symbols, params: LoraParams, amplitude: float = 1.0):
     tests/e2e_chain_test.cpp:79-93, tests/performance_test.cpp:112-125).
 
     Equivalent to ``dechirp(*modulate(...))`` up to last-ULP IQ
-    differences.  The down-chirp multiply folds into the TX multiplier, so
-    the pre-dechirped stream is written once.  A CUDA input runs the TX
-    kernels (osr == 1, every sf; osr > 1 raises ``NotImplementedError``).
-    A CPU input runs the kernels' plain version where a kernel would apply
-    (dense tables to sf9, factored digit tables for sf10-12), else
-    modulate then dechirp.
+    differences.  Where a TX kernel covers the configuration
+    (``ops/cuda_tx.py::tx_supported``: osr == 1 to sf12; osr > 1 with tone
+    modulus 128 <= n*osr/bw_scale <= 4096, both wide profiles included) the
+    down-chirp multiply folds into the TX multiplier, so the pre-dechirped
+    stream is written once: a CUDA input launches the kernel, a CPU input
+    runs its plain version.  Elsewhere both devices modulate in closed form
+    then dechirp, the JAX package's own dispatch (``models/modem.py:
+    247-252``).
     """
     from ..ops.cuda_tx import tx_supported, tx_tone_synth
     sym = int_tensor(symbols, torch.int32)
-    if sym.is_cuda or tx_supported(params.n, params.osr):
+    if tx_supported(params.n, params.osr, params.bw_scale):
         allsyms = _with_sync_prelude(sym, params)
         return tx_tone_synth(allsyms, params, amplitude, dechirp=True)
     return dechirp(*modulate(sym, params, amplitude), params)
@@ -419,8 +426,9 @@ def demodulate(iq_r, iq_i, params: LoraParams,
 
     The device of the input decides the detection path
     (``ops/cuda_rx.py::rx_window_detect``): a CUDA tensor runs the fused RX
-    kernel (osr == 1; osr > 1 raises ``NotImplementedError``), a CPU tensor
-    its plain version at any osr.  Both rotate each window and then multiply
+    kernel (``rx_dense``/``rx_hybrid`` at osr == 1, ``rx_osr`` on the
+    decimated osr > 1 windows), a CPU tensor its plain version.  Both rotate
+    each window and then multiply
     by down-chirp x window, as the JAX package's kernel branch does; its jnp
     branch dechirps before it rotates (``models/modem.py:515-525``), a float
     reordering that moves no detection of the reference fixtures.
@@ -505,6 +513,116 @@ def _timing_shifted_windows(iq_r, iq_i, t_off, total: int, step: int,
     return wr, wi
 
 
+def _wide_mult(n: int, osr: int, window: Window):
+    """The wide detection's multiplier: the reference's decimated-grid
+    window repeated per oversampled sample (or ones), and zeros
+    (``models/modem.py:635-638`` of the JAX package)."""
+    win = window_table(n, window)
+    w = (np.repeat(win, osr) if win is not None
+         else np.ones(n * osr, np.float32))
+    return w, np.zeros(n * osr, np.float32)
+
+
+def _signed_mod(x, m: int):
+    r = torch.remainder(x, m)
+    return torch.where(r > m // 2, r - m, r)
+
+
+def demodulate_wide(iq_r, iq_i, params: LoraParams,
+                    normalize: bool = True) -> DemodResult:
+    """Injective oversampled demodulation: the BW-250/500 receiver the
+    reference cannot express (the JAX package's ``models/modem.py:
+    539-722``).
+
+    The reference detector decimates each window to N samples and takes an
+    N-bin FFT, so its symbol->bin map is ``sym * bw_scale mod N``: at
+    bw_scale > 1 the top log2(bw_scale) bits of every symbol are lost.  The
+    waveform is injective whenever osr >= bw_scale: this receiver keeps the
+    full oversampled window and detects over an (N*osr)-point DFT, where the
+    tone lands at wide bin ``sym * bw_scale``.
+
+    Input is pre-dechirped at full rate (the ``dechirp`` helper's output),
+    like ``demodulate_tones``: peak normalization into [-1, 1], the
+    2-symbol CFO/timing estimate with the lowest-index tie-break, the CFO
+    rate -2*pi*cfo/(N*osr) per full-rate sample, then one
+    ``rx_window_detect(wide=True)`` over every symbol with the window
+    repeated per oversampled sample.  The two sync chirps are known
+    pilots: their common wide-bin offset is measured and subtracted before
+    the bins snap to the symbol grid.  Requires osr >= bw_scale.
+
+    The JAX package cuts the symbols into chunks with one-row halos so a
+    call fits the TPU's VMEM (``wide_supported``); its chunked and one-call
+    paths give the same detections, and on the card a window is one block
+    reading device memory, so one call covers all symbols.  A CUDA input
+    runs ``rx_dense``/``rx_hybrid`` at n*osr points, a CPU input the plain
+    version.
+
+    Returns a DemodResult; ``symbols`` are recovered symbol values (divided
+    out of the wide-bin grid), ``power``/``power_avg`` per symbol in dB.
+    """
+    n, osr, step = params.n, params.osr, params.step
+    bs = params.bw_scale
+    if osr < bs:
+        raise InvalidArgumentError(
+            f"wide demodulation needs osr >= bw_scale ({osr} < {bs})")
+    sample_count = iq_r.shape[-1]
+    if sample_count % step != 0:
+        raise InvalidArgumentError(
+            f"sample count {sample_count} not a multiple of step {step}")
+    total = sample_count // step
+    if total < 2:
+        raise RangeError("input must contain at least two symbols")
+    iq_r = iq_r.contiguous()
+    iq_i = iq_i.contiguous()
+
+    if normalize:
+        inf = float("inf")
+        max_amp = torch.maximum(
+            torch.linalg.vector_norm(iq_r, ord=inf, dim=-1),
+            torch.linalg.vector_norm(iq_i, ord=inf, dim=-1))
+        scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
+                            torch.ones_like(max_amp))[..., None]
+    else:
+        scale = torch.ones(iq_r.shape[:-1] + (1,), dtype=torch.float32,
+                           device=iq_r.device)
+
+    est = _estimate_core(iq_r[..., : 2 * step] * scale,
+                         iq_i[..., : 2 * step] * scale,
+                         params, 2, tie_break_idx=True)
+    t_off = torch.round(est.time_offset).to(torch.int32)
+    # the decimated-grid rate (-2*pi*cfo/n per decimated sample) spread
+    # over osr full-rate samples
+    rate = -float(TWO_PI) * est.cfo / float(np.float32(n * osr))
+    mr, mi = device_table(_wide_mult, n, osr, params.window,
+                          device=iq_r.device)
+    idx, power, power_avg = rx_window_detect(
+        iq_r, iq_i, torch.clamp(t_off, -step, step), rate,
+        scale[..., 0].contiguous(), mr, mi, params, wide=True)
+
+    # residual timing/CFO moves every tone by the same wide-bin offset:
+    # measure it on the sync pilots and subtract it before snapping
+    exp0, exp1 = params.sync_nibble_symbols()
+    d0 = _signed_mod(idx[..., 0] - exp0 * bs, step).to(torch.float32)
+    d1 = _signed_mod(idx[..., 1] - exp1 * bs, step).to(torch.float32)
+    delta = (d0 + d1) * 0.5
+    shifted = _signed_mod(idx - torch.round(delta[..., None]).to(torch.int32),
+                          step)
+    corrected = torch.round(shifted.to(torch.float32)
+                            / float(np.float32(bs))).to(torch.int32)
+    sym_wide = torch.remainder(corrected, n)
+    sw0, sw1 = sym_wide[..., 0], sym_wide[..., 1]
+    shift = params.sf - 4 if params.sf > 4 else 0
+    sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
+    return DemodResult(
+        symbols=sym_wide[..., 2:],
+        sync_word=sync.to(torch.uint8),
+        cfo=est.cfo,
+        time_offset=est.time_offset,
+        power=power,
+        power_avg=power_avg,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Host-boundary helpers
 # ---------------------------------------------------------------------------
@@ -517,11 +635,14 @@ def to_complex(re, im) -> np.ndarray:
             + 1j * np.asarray(im).astype(np.float32))
 
 
-def from_complex(iq, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """Split host complex IQ into float32 planes on ``device``."""
+def from_complex(iq, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Split host complex IQ into float32 planes on ``device``: the CUDA
+    card unless the caller asks for the CPU (``device="cpu"``); without a
+    card the default raises (``utils/tensors.py::host_device``)."""
+    dev = host_device(device)
     iq = np.asarray(iq)
-    return (torch.as_tensor(iq.real.astype(np.float32), device=device),
-            torch.as_tensor(iq.imag.astype(np.float32), device=device))
+    return (torch.as_tensor(iq.real.astype(np.float32), device=dev),
+            torch.as_tensor(iq.imag.astype(np.float32), device=dev))
 
 
 def _tiled_downchirp(sf: int, bw_scale: int, osr: int, total: int):

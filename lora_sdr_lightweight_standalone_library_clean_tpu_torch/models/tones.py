@@ -11,7 +11,8 @@ the path the reference perf harness times (tests/performance_test.cpp:
 
 The device of the input decides the detection path
 (``ops/cuda_rx.py::rx_window_detect``): a CUDA tensor runs the fused RX
-kernel, a CPU tensor its plain version, the torch form of the JAX
+kernel (``rx_dense``/``rx_hybrid`` at osr == 1, ``rx_osr`` on the decimated
+osr > 1 windows), a CPU tensor its plain version, the torch form of the JAX
 package's jnp path (``tones.py:90-100,145-155``).
 """
 from __future__ import annotations

@@ -26,9 +26,9 @@ Two plain forms synthesize the IQ, as in the JAX package:
   (n, n) tone table.
 
 ``modulate_ri`` lets the device of its input decide: a CUDA tensor goes to
-the hand-written TX kernels (``ops/cuda_tx.py``), a CPU tensor to the plain
-forms.  Valid for ``sym < 2*N``, like the reference's single-subtraction
-wrap.
+the hand-written TX kernels (``ops/cuda_tx.py``) where they cover the
+configuration, a CPU tensor to the plain forms.  Valid for ``sym < 2*N``,
+like the reference's single-subtraction wrap.
 """
 from __future__ import annotations
 
@@ -117,21 +117,25 @@ def modulate_ri(symbols, params: LoraParams, amplitude: float = 1.0):
 
     Emits the two sync-word chirps followed by one up-chirp per symbol with a
     packet-wide exactly-carried phase.  Batched over any leading axes of
-    ``symbols``.  A CUDA tensor is synthesized by the TX kernels
-    (``ops/cuda_tx.py``: the dense one to n = 512, the factored one for
-    n = 1024 ... 4096, i.e. every sf at osr == 1; osr > 1 raises
-    ``NotImplementedError``); a CPU tensor or host array by the plain tone
-    lookup at osr == 1 (factored above n = 512), else the closed-form
-    phases.
+    ``symbols``.  The JAX package's dispatch (``ops/chirp.py:145-168``):
+    where a TX kernel covers the configuration (``ops/cuda_tx.py::
+    tx_supported``: osr == 1 to n = 4096, osr > 1 with tone modulus
+    128 <= n*osr/bw_scale <= 4096), a CUDA tensor is synthesized by it;
+    elsewhere (e.g. sf12/BW125/osr2, q = 8192) both devices run the
+    closed-form phases, which the JAX package runs as plain XLA on the TPU
+    too.  A CPU tensor runs the plain tone lookup at osr == 1 (factored
+    above n = 512) and the closed-form phases at osr > 1, as the JAX
+    package does off the TPU.  Host data runs on the card
+    (``utils/tensors.py::int_tensor``).
 
     Returns (re, im) float32 tensors of shape (..., (S+2) * n * osr).
     """
+    from .cuda_tx import tx_supported, tx_tone_synth
     sym = int_tensor(symbols, torch.int32)
-    if sym.is_cuda:
-        from .cuda_tx import tx_tone_synth
+    if sym.is_cuda and tx_supported(params.n, params.osr, params.bw_scale):
         return tx_tone_synth(_with_sync_prelude(sym, params), params,
                              amplitude)
-    if params.osr == 1:
+    if params.osr == 1 and not sym.is_cuda:
         return _modulate_ri_mxu(sym, params, amplitude)
     return _modulate_ri_vpu(sym, params, amplitude)
 

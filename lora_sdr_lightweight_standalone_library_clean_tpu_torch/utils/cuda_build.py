@@ -60,8 +60,15 @@ _SIGNATURES = {
                          _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p],
+    # sym, rows, s_total, q, bs, osr, period, gated, tab_c, tab_s, w2c, w2s,
+    # wtc, wts, mr, mi, out_re, out_im, stream
+    "lora_tx_osr": [_c_void_p] + [_c_int] * 7 + [_c_void_p] * 11,
     "lora_rx_dense": _RX_SIGNATURE,
     "lora_rx_hybrid": _RX_SIGNATURE,
+    # sr, si, t_off, rate, scale, mr, mi, twr, twi, b, s, n, osr, h0, h1,
+    # scale_db, idx, pw, pav, stream
+    "lora_rx_osr": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float]
+                   + [_c_void_p] * 4,
 }
 
 # Filled by load(): library path, build seconds (0.0 when it was cached)

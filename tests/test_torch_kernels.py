@@ -13,7 +13,6 @@ import os
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,7 +36,7 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (  # noq
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (  # noqa: E402
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (  # noqa: E402
-    cuda_build)
+    cuda_build, errors as terrors)
 
 torch.set_num_threads(1)
 
@@ -204,45 +203,51 @@ def test_rx_fft_twiddles_are_the_dft_matrix_row():
 
 
 # ---------------------------------------------------------------------------
-# What the kernels do not cover raises, naming the ROADMAP item
+# What lies outside the kernels' domain raises, naming the domain
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(sf=7, osr=2), "#3"),
-    (dict(sf=12, bw=500000, osr=4), "#3"),
+@pytest.mark.parametrize("kw", [
+    dict(sf=12, osr=2),                 # q = 8192: closed form in JAX too
+    dict(sf=5, osr=2),                  # q = 64
 ])
-def test_tx_uncovered_config_raises(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_tx_uncovered_config_raises(kw):
+    with pytest.raises(terrors.InvalidArgumentError, match="closed form"):
         cuda_tx._require_supported(T.LoraParams(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(terrors.InvalidArgumentError, match="domain"):
         cuda_tx.tx_tone_synth_ref(torch.zeros(1, 4, dtype=torch.int32),
                                   T.LoraParams(**kw))
 
 
-@pytest.mark.parametrize("kw,wide,halo,item", [
-    (dict(sf=7, osr=2), False, (0, 0), "#6"),
-    (dict(sf=12, bw=500000, osr=4), True, (0, 0), "#5"),
-    (dict(sf=7), True, (0, 0), "#5"),
-    (dict(sf=7), False, (1, 1), "#6"),
-    (dict(sf=5, osr=2), False, (0, 0), "#6"),
+@pytest.mark.parametrize("kw,wide,halo,match", [
+    (dict(sf=7, osr=2), False, (1, 1), "halo"),
+    (dict(sf=7, osr=4), False, (0, 1), "halo"),
+    (dict(sf=12, bw=500000, osr=8), True, (0, 0), "32768-point"),
+    (dict(sf=7, osr=3), True, (0, 0), "384-point"),
+    (dict(sf=7), True, (-1, 0), "halo"),
 ])
-def test_rx_uncovered_config_raises(kw, wide, halo, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cuda_rx._require_supported(T.LoraParams(**kw), wide, halo)
+def test_rx_uncovered_config_raises(kw, wide, halo, match):
+    with pytest.raises(terrors.InvalidArgumentError, match=match):
+        cuda_rx._geometry(T.LoraParams(**kw), wide, halo)
 
 
 def test_supported_predicates():
-    """osr 1 is covered from n = 4 to 4096 (sf2-12); 8192 points and
-    osr > 1 are not."""
+    """TX: osr 1 from n = 4 to 4096, osr > 1 for tone moduli 128 ... 4096
+    (both wide profiles, sf7/osr2); RX: every decimated n = 4 ... 4096 at
+    any osr, the wide grid to 16384 points, halos on osr-1 windows."""
     for n in (4, 512, 1024, 2048, 4096):
         assert cuda_tx.tx_supported(n, 1)
     assert not cuda_tx.tx_supported(8192, 1)
-    assert not cuda_tx.tx_supported(128, 2)
+    assert cuda_tx.tx_supported(128, 2)
+    assert cuda_tx.tx_supported(512, 2, 2) and cuda_tx.tx_supported(4096, 4, 4)
+    assert not cuda_tx.tx_supported(4096, 2, 1)       # q = 8192
+    assert not cuda_tx.tx_supported(32, 2, 1)         # q = 64
     for sf in range(2, 13):  # n = 4 ... 4096
-        cuda_rx._require_supported(T.LoraParams(sf=sf), False, (0, 0))
-    with pytest.raises(NotImplementedError, match="#5"):
-        cuda_rx._require_supported(SimpleNamespace(n=8192, osr=1), False,
-                                   (0, 0))
+        for osr in (1, 2, 4):
+            p = T.LoraParams(sf=sf, osr=osr)
+            assert cuda_rx._geometry(p, False, (0, 0)) == (p.n, osr)
+    p = T.LoraParams(sf=12, bw=500000, osr=4)
+    assert cuda_rx._geometry(p, True, (1, 1)) == (16384, 1)
+    assert cuda_rx._geometry(T.LoraParams(sf=7), False, (1, 0)) == (128, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +271,8 @@ def test_nvcc_command_targets_sm90a():
     """One compile per source for sm_90a, then one shared-library link."""
     srcs = sorted(s.name for s in cuda_build._sources()
                   if s.suffix == ".cu")
-    assert srcs == ["rx_dense.cu", "rx_hybrid.cu", "tx_dense.cu",
-                    "tx_factored.cu"]
+    assert srcs == ["rx_dense.cu", "rx_hybrid.cu", "rx_osr.cu",
+                    "tx_dense.cu", "tx_factored.cu", "tx_osr.cu"]
     cmd = cuda_build.compile_command(Path("csrc/rx_hybrid.cu"),
                                      Path("rx_hybrid.o"))
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
@@ -323,15 +328,20 @@ def test_wrappers_name_the_tpu_kernel_they_replace():
             ("csrc/tx_factored.cu", "ops/pallas_tx.py:_tx_kernel_factored"),
             ("csrc/rx_dense.cu", "ops/pallas_rx.py:_rx_kernel"),
             ("csrc/rx_hybrid.cu", "ops/pallas_rx.py:_rx_kernel"),
+            ("csrc/tx_osr.cu", "ops/pallas_tx.py:_tx_osr_kernel"),
+            ("csrc/rx_osr.cu", "ops/pallas_rx.py:_rx_kernel"),
             ("ops/cuda_tx.py", "ops/pallas_tx.py:_tx_kernel_factored"),
+            ("ops/cuda_tx.py", "ops/pallas_tx.py:_tx_osr_kernel"),
             ("ops/cuda_rx.py", "ops/pallas_rx.py:_rx_kernel")):
         text = (root / src).read_text()
         assert tpu in text, src
         assert "H100" in text, src
     for mod, counts in (("ops/cuda_tx.py", ("DENSE_LAUNCHES",
-                                            "FACTORED_LAUNCHES")),
+                                            "FACTORED_LAUNCHES",
+                                            "OSR_LAUNCHES")),
                         ("ops/cuda_rx.py", ("DENSE_LAUNCHES",
-                                            "HYBRID_LAUNCHES"))):
+                                            "HYBRID_LAUNCHES",
+                                            "OSR_LAUNCHES"))):
         tree = ast.parse((root / mod).read_text())
         names = {t.id for node in ast.walk(tree)
                  if isinstance(node, ast.Assign) for t in node.targets

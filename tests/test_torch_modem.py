@@ -174,7 +174,7 @@ def test_errors_mirror_errno_contract():
 
 def test_encode_all_bytes():
     b = np.arange(256, dtype=np.uint8).reshape(4, 64)
-    np.testing.assert_array_equal(_np(T.encode(b)),
+    np.testing.assert_array_equal(_np(T.encode(torch.as_tensor(b))),
                                   np.asarray(J.encode(b)).astype(np.int32))
 
 
@@ -184,21 +184,21 @@ def test_decode_all_codewords_and_single_bit_errors():
     cw = np.arange(256, dtype=np.int32).reshape(8, 32)
     for syms in (cw, np.asarray(J.encode(np.arange(256, dtype=np.uint8)
                                          .reshape(2, 128))).astype(np.int32)):
-        tp, tok = T.decode(syms)
+        tp, tok = T.decode(torch.as_tensor(syms))
         jp, jok = J.decode(syms)
         np.testing.assert_array_equal(_np(tp), np.asarray(jp))
         np.testing.assert_array_equal(_np(tok), np.asarray(jok))
     enc = np.asarray(J.encode(np.arange(256, dtype=np.uint8)[None]))
     for bit in range(8):
         flipped = (enc.astype(np.int32) ^ (1 << bit))
-        tp, _ = T.decode(flipped, check_crc=False)
+        tp, _ = T.decode(torch.as_tensor(flipped), check_crc=False)
         jp, _ = J.decode(flipped, check_crc=False)
         np.testing.assert_array_equal(_np(tp), np.asarray(jp))
 
 
 def test_decode_odd_symbol_count_raises():
     with pytest.raises(terrors.InvalidArgumentError):
-        T.decode(np.zeros((1, 3), np.int32))
+        T.decode(torch.zeros((1, 3), dtype=torch.int32))
 
 
 def test_crc_all_byte_values():
@@ -206,14 +206,14 @@ def test_crc_all_byte_values():
     of a 28-byte message: exact against the JAX matmul CRC and the
     reference's sequential loop."""
     b = np.arange(256, dtype=np.uint8)[:, None]
-    got = _np(T.crc_sx1272(b))
+    got = _np(T.crc_sx1272(torch.as_tensor(b)))
     np.testing.assert_array_equal(got, np.asarray(J.crc_sx1272(b)))
     assert all(int(got[v]) == jcodes.sx1272_data_checksum(b[v])
                for v in range(256))
     rng = np.random.default_rng(0)
     msgs = rng.integers(0, 256, (256, 28)).astype(np.uint8)
     msgs[np.arange(256), np.arange(256) % 28] = np.arange(256)
-    np.testing.assert_array_equal(_np(T.crc_sx1272(msgs)),
+    np.testing.assert_array_equal(_np(T.crc_sx1272(torch.as_tensor(msgs))),
                                   np.asarray(J.crc_sx1272(msgs)))
 
 
@@ -221,7 +221,7 @@ def test_crc_all_byte_values():
 def test_crc_lengths(length):
     rng = np.random.default_rng(length)
     msgs = rng.integers(0, 256, (8, length)).astype(np.uint8)
-    got = _np(T.crc_sx1272(msgs))
+    got = _np(T.crc_sx1272(torch.as_tensor(msgs)))
     np.testing.assert_array_equal(got, np.asarray(J.crc_sx1272(msgs)))
     assert int(got[0]) == jcodes.sx1272_data_checksum(msgs[0])
 
@@ -234,7 +234,7 @@ def test_decode_crc_verdict_matches():
     pay[:, 11] = crc >> 8
     pay[::3, 5] ^= 0x40
     syms = np.asarray(J.encode(pay)).astype(np.int32)
-    tp, tok = T.decode(syms)
+    tp, tok = T.decode(torch.as_tensor(syms))
     jp, jok = J.decode(syms)
     np.testing.assert_array_equal(_np(tp), pay)
     np.testing.assert_array_equal(_np(tok), np.asarray(jok))
@@ -269,7 +269,8 @@ def test_modulate_vpu_matches_jax(sf, bw, osr):
     jp = J.LoraParams(sf=sf, bw=bw, osr=osr)
     tp = T.LoraParams(sf=sf, bw=bw, osr=osr)
     wr, wi = jchirp.modulate_ri(syms, jp, 0.5, method="vpu")
-    gr, gi = tchirp._modulate_ri_vpu(syms, tp, 0.5)
+    gr, gi = tchirp._modulate_ri_vpu(torch.as_tensor(syms.astype(np.int32)),
+                                     tp, 0.5)
     np.testing.assert_allclose(_np(gr), np.asarray(wr), atol=2e-6, rtol=0)
     np.testing.assert_allclose(_np(gi), np.asarray(wi), atol=2e-6, rtol=0)
 
@@ -283,17 +284,18 @@ def test_modulate_mxu_matches_jax(sf, bw):
     jp = J.LoraParams(sf=sf, bw=bw)
     tp = T.LoraParams(sf=sf, bw=bw)
     wr, wi = jchirp.modulate_ri(syms, jp, 0.75, method="mxu")
-    gr, gi = tchirp._modulate_ri_mxu(syms, tp, 0.75)
+    tsyms = torch.as_tensor(syms.astype(np.int32))
+    gr, gi = tchirp._modulate_ri_mxu(tsyms, tp, 0.75)
     np.testing.assert_allclose(_np(gr), np.asarray(wr), atol=2e-6, rtol=0)
     np.testing.assert_allclose(_np(gi), np.asarray(wi), atol=2e-6, rtol=0)
     # the public entry point takes the same plain form on a CPU input
-    pr, pi = tchirp.modulate_ri(syms, tp, 0.75)
+    pr, pi = tchirp.modulate_ri(tsyms, tp, 0.75)
     assert torch.equal(pr, gr) and torch.equal(pi, gi)
 
 
 def test_modulate_mxu_and_vpu_agree():
     """The two plain forms are float32 roundings of one exact phase."""
-    syms = np.random.default_rng(1).integers(0, 256, (2, 8))
+    syms = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (2, 8)))
     p = T.LoraParams(sf=8)
     a = tchirp._modulate_ri_mxu(syms, p)
     b = tchirp._modulate_ri_vpu(syms, p)
@@ -318,9 +320,27 @@ def test_complex_helpers_round_trip():
     rng = np.random.default_rng(2)
     iq = (rng.standard_normal(64) + 1j * rng.standard_normal(64)).astype(
         np.complex64)
-    re, im = T.from_complex(iq)
+    re, im = T.from_complex(iq, device="cpu")
     assert re.dtype == torch.float32 and re.device.type == "cpu"
     np.testing.assert_array_equal(T.to_complex(re, im), iq)
+
+
+def test_host_data_goes_to_the_card():
+    """Host data (numpy, lists) and ``from_complex`` run on the CUDA card
+    unless the caller asks for the CPU; without a card they raise, saying
+    so, instead of running on the CPU.  A CPU tensor stays on the CPU."""
+    iq = np.ones(8, np.complex64)
+    b = np.arange(4, dtype=np.uint8)[None]
+    assert T.encode(torch.as_tensor(b)).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert T.encode(b).device.type == "cuda"
+        assert T.from_complex(iq)[0].device.type == "cuda"
+        return
+    for call in (lambda: T.encode(b), lambda: T.decode([[0, 0]]),
+                 lambda: T.crc_sx1272(b), lambda: T.from_complex(iq),
+                 lambda: T.modulate(b, T.LoraParams(sf=7))):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            call()
 
 
 # ---------------------------------------------------------------------------

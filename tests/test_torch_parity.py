@@ -136,30 +136,32 @@ def test_modulate_dechirped_matches_jax(sf, bw):
     tp = T.params_from_reference(jp)
     syms = np.random.default_rng(sf).integers(0, 1 << sf, (4, 12)).astype(
         np.uint16)
+    tsyms = torch.as_tensor(syms.astype(np.int32))
     wr, wi = J.modulate_dechirped(syms, jp)
-    gr, gi = T.modulate_dechirped(syms, tp)
+    gr, gi = T.modulate_dechirped(tsyms, tp)
     np.testing.assert_allclose(gr.numpy(), np.asarray(wr), atol=4e-6, rtol=0)
     np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=4e-6, rtol=0)
-    mr, mi = T.modulate(syms, tp)
+    mr, mi = T.modulate(tsyms, tp)
     jr, ji = J.modulate(syms, jp)
     np.testing.assert_allclose(mr.numpy(), np.asarray(jr), atol=2e-6, rtol=0)
     np.testing.assert_allclose(mi.numpy(), np.asarray(ji), atol=2e-6, rtol=0)
 
 
 def test_modulate_dechirped_outside_the_kernel_on_cpu():
-    """osr 2 on the CPU: modulate then dechirp, as the JAX package does off
-    its TX kernel; within 4e-6."""
-    jp = J.LoraParams(sf=7, osr=2)
+    """sf5/osr2 (tone modulus 64, below the TX kernels' 128) on the CPU:
+    modulate then dechirp, as the JAX package does off its TX kernel;
+    within 4e-6."""
+    jp = J.LoraParams(sf=5, osr=2)
     tp = T.params_from_reference(jp)
-    syms = np.random.default_rng(5).integers(0, 256, (2, 6)).astype(np.uint16)
+    syms = np.random.default_rng(5).integers(0, 64, (2, 6)).astype(np.uint16)
     wr, wi = J.modulate_dechirped(syms, jp)
-    gr, gi = T.modulate_dechirped(syms, tp)
+    gr, gi = T.modulate_dechirped(torch.as_tensor(syms.astype(np.int32)), tp)
     np.testing.assert_allclose(gr.numpy(), np.asarray(wr), atol=4e-6, rtol=0)
     np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=4e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
-# C-reference fixtures (tests/test_parity.py:43-78), osr = 1
+# C-reference fixtures (tests/test_parity.py:43-78), osr 1 and 2
 # ---------------------------------------------------------------------------
 
 def _fixture_params(d):
@@ -167,10 +169,7 @@ def _fixture_params(d):
                         window=str(d["window"]))
 
 
-OSR1 = [f for f in FIXTURES if int(np.load(f)["osr"]) == 1]
-
-
-@pytest.mark.parametrize("path", OSR1, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", FIXTURES, ids=lambda p: p.stem)
 def test_tones_path_bins(path):
     """Dechirped detection recovers (sym * bw_scale) mod N for every encoded
     symbol of the reference's IQ, and the sync nibbles likewise."""
@@ -178,7 +177,7 @@ def test_tones_path_bins(path):
     p = _fixture_params(d)
     nsym = d["iq"].size // p.step - 2
     enc = d["encoded"][:nsym].astype(np.int64)
-    rr, ri = T.from_complex(d["iq"][None])
+    rr, ri = T.from_complex(d["iq"][None], device="cpu")
     dr, di = T.dechirp(rr, ri, p)
     res = T.demodulate_tones(dr, di, p)
     np.testing.assert_array_equal(res.symbols.numpy()[0],
@@ -191,14 +190,14 @@ def test_tones_path_bins(path):
 
 
 @pytest.mark.parametrize(
-    "path", [f for f in OSR1 if int(np.load(f)["bw"]) == 125000],
+    "path", [f for f in FIXTURES if int(np.load(f)["bw"]) == 125000],
     ids=lambda p: p.stem)
 def test_payload_roundtrip_from_reference_iq(path):
     """The payload decodes bit-exactly from the reference's IQ through the
     tones path (bw_scale == 1; Hamming corrects the clipped codeword MSB)."""
     d = np.load(path)
     p = _fixture_params(d)
-    rr, ri = T.from_complex(d["iq"][None])
+    rr, ri = T.from_complex(d["iq"][None], device="cpu")
     dr, di = T.dechirp(rr, ri, p)
     res = T.demodulate_tones(dr, di, p)
     dec, _ = T.decode(res.symbols)
@@ -219,7 +218,7 @@ def test_full_path_demod_bit_exact(path):
     d = np.load(path)
     p = _fixture_params(d)
     jp = J.LoraParams(sf=p.sf, bw=p.bw, osr=p.osr, window=p.window.value)
-    rr, ri = T.from_complex(d["iq"][None])
+    rr, ri = T.from_complex(d["iq"][None], device="cpu")
     res = T.demodulate(rr, ri, p)
     mine = res.symbols.numpy()[0]
     np.testing.assert_array_equal(mine, d["demod"][: len(mine)])
@@ -249,7 +248,7 @@ def test_estimate_and_compensate_offsets_parity(path):
     tests/test_parity.py:141-159."""
     d = np.load(path)
     p = T.LoraParams(sf=int(d["sf"]))
-    rr, ri = T.from_complex(d["iq"])
+    rr, ri = T.from_complex(d["iq"], device="cpu")
     est = T.estimate_offsets(rr, ri, p)
     assert abs(float(est.cfo) - float(d["ref_cfo"])) < 2e-5
     assert abs(float(est.time_offset) - float(d["ref_time_offset"])) < 1e-3
@@ -272,7 +271,8 @@ def _imports(tree):
 
 
 def test_port_sources_import_no_jax():
-    files = sorted((REPO / PORT).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / PORT).rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_slice.py"]
     assert len(files) >= 14
     for f in files:
         for name in _imports(ast.parse(f.read_text())):
@@ -301,6 +301,6 @@ def test_public_names():
                  "modulate_dechirped", "estimate_offsets", "dechirp",
                  "to_complex", "from_complex", "crc_sx1272", "DemodResult",
                  "OffsetEstimate", "demodulate_tones", "demodulate",
-                 "compensate_offsets"):
+                 "compensate_offsets", "demodulate_wide"):
         assert hasattr(T, name), name
         assert name == "params_from_reference" or hasattr(J, name), name

@@ -3,13 +3,17 @@
 
 Run from the root of a checkout:
 
-    python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--packets 8192]
-                                   [--iters 5] [--out PATH]
+    python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--osr 1]
+                                   [--packets 8192] [--iters 5] [--out PATH]
 
 It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
-the given sf and bandwidth, CR4-5, on random 32-byte payloads (by default
-the sf7 batch of ``chip_smoke.py`` phase 4; ``--sf 12 --packets 256`` is
-its phase 5) and reports, all from one process:
+the given sf, bandwidth and oversampling, CR4-5, on random 32-byte payloads
+(by default the sf7 batch of ``chip_smoke.py`` phase 4; ``--sf 12 --packets
+256`` is its phase 5, ``--sf 7 --osr 2 --packets 4096`` its decimated osr-2
+slice).  At BW250/500 with osr >= bw_scale the receiver is the injective
+``demodulate_wide`` instead (``--sf 12 --bw 500000 --osr 4 --packets 64``
+and ``--sf 9 --bw 250000 --osr 2 --packets 1024`` are ``chip_smoke.py``'s
+wide slices).  It reports, all from one process:
 
 - wall ms per iteration: CUDA events over ``--iters`` iterations after a
   warm-up, without the profiler;
@@ -25,7 +29,7 @@ its phase 5) and reports, all from one process:
 
 The report starts with the ``nvidia-smi`` name/power-limit line, is
 printed, and is written to ``--out`` (default
-``build/profile_sf<sf>.txt``).  It exits nonzero without a CUDA
+``build/profile_sf<sf>_bw<kHz>_osr<osr>.txt``).  It exits nonzero without a CUDA
 card or when the profiler records no device activity.
 """
 from __future__ import annotations
@@ -57,9 +61,16 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _wide(p) -> bool:
+    """BW250/500 with osr >= bw_scale: the receiver that keeps every
+    symbol bit is ``demodulate_wide``."""
+    return p.bw_scale > 1 and p.osr >= p.bw_scale
+
+
 def _stages(payload, p):
     """The slice as (name, thunk) pairs, each thunk feeding the next."""
     state = {}
+    demod = lora.demodulate_wide if _wide(p) else lora.demodulate_tones
 
     def enc():
         state["syms"] = lora.encode(payload)
@@ -68,13 +79,13 @@ def _stages(payload, p):
         state["iq"] = lora.modulate_dechirped(state["syms"], p)
 
     def dem():
-        state["res"] = lora.demodulate_tones(*state["iq"], p)
+        state["res"] = demod(*state["iq"], p)
 
     def dec():
         state["dec"], state["ok"] = lora.decode(state["res"].symbols)
 
     return state, [("encode", enc), ("modulate_dechirped", mod),
-                   ("demodulate_tones", dem), ("decode", dec)]
+                   (demod.__name__, dem), ("decode", dec)]
 
 
 def _wall_ms(run, iters: int) -> float:
@@ -109,6 +120,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=int, default=7)
     ap.add_argument("--bw", type=int, default=125000)
+    ap.add_argument("--osr", type=int, default=1)
     ap.add_argument("--packets", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
@@ -118,7 +130,7 @@ def main() -> int:
         print("profile_slice: needs a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    p = lora.LoraParams(sf=args.sf, bw=args.bw, cr="4/5")
+    p = lora.LoraParams(sf=args.sf, bw=args.bw, osr=args.osr, cr="4/5")
     rng = np.random.default_rng(args.seed)
     payload = torch.as_tensor(
         rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
@@ -132,7 +144,14 @@ def main() -> int:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
-    assert torch.equal(state["dec"], payload), "the slice did not decode"
+    if p.osr == 1 or _wide(p):
+        assert torch.equal(state["dec"], payload), "the slice did not decode"
+    else:
+        # the decimated receiver reads the last symbol's edge row at
+        # phase 0 (the reference's clamp), so only the others are exact
+        want = lora.encode(payload) * p.bw_scale % p.n
+        assert torch.equal(state["res"].symbols[:, :-1], want[:, :-1]), \
+            "the slice did not demodulate"
 
     wall = _wall_ms(run, args.iters)
     acts = _device_activity(run, args.iters)
@@ -158,8 +177,8 @@ def main() -> int:
     lines = [
         _smi(),
         f"torch {torch.__version__} cuda {torch.version.cuda}; sf{args.sf} "
-        f"BW{args.bw // 1000}, {args.packets} packets x {PAYLOAD} B, "
-        f"{args.iters} iterations",
+        f"BW{args.bw // 1000} osr{args.osr} through {stages[2][0]}, "
+        f"{args.packets} packets x {PAYLOAD} B, {args.iters} iterations",
         f"wall per iteration {wall:.3f} ms (CUDA events, no profiler); "
         f"device busy {busy:.3f} ms per iteration ({launches:.0f} device "
         f"activities); idle share {1.0 - busy / wall:.3f}",
@@ -174,7 +193,8 @@ def main() -> int:
                      f"{statistics.median(tot):8.3f}")
     report = "\n".join(lines)
     print(report)
-    out = Path(args.out or f"build/profile_sf{args.sf}.txt")
+    out = Path(args.out or f"build/profile_sf{args.sf}_bw{args.bw // 1000}"
+               f"_osr{args.osr}.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(report + "\n")
     return 0

@@ -14,7 +14,11 @@ It covers sf2 to sf12 on the card: the packet pipeline ``encode ->
 modulate_dechirped -> demodulate_tones -> decode`` and the full-RX entry
 point ``modulate -> demodulate`` (with ``estimate_offsets`` and
 ``compensate_offsets``) at any osr, and the injective wide receiver
-``demodulate_wide`` for BW250/500 at osr >= bw_scale.
+``demodulate_wide`` for BW250/500 at osr >= bw_scale.  The streaming
+receiver ``receive_stream`` (``parallel/``) takes chunks of a continuous
+stream and returns the packets in it, and ``demodulate_tones``/``demodulate``
+take the JAX package's ``backend`` values (``"pallas"`` is the two-stage
+rotate-detect route).
 """
 from .utils.config import (LoraParams, Window, load_profiles,
                            params_from_profile, params_from_reference,
@@ -26,5 +30,10 @@ from .models.modem import (
     from_complex, crc_sx1272, DemodResult, OffsetEstimate,
 )
 from .models.tones import demodulate_tones
+from .parallel import streaming
+from .parallel.receiver import (
+    receive_stream, stream_rx_init, packet_samples, StreamRxState,
+    RecoveredPackets,
+)
 
 __version__ = "0.1.0"

@@ -1,13 +1,22 @@
-// Pieces shared by the fused RX kernels (rx_dense.cu, rx_hybrid.cu,
-// rx_osr.cu): the window of one (packet, symbol), its samples rotated and
-// multiplied with the plain PyTorch version's rounding, the first-max rule
-// and the dB epilogue.  Steps (a), (b) and (d) of rx_dense.cu's header.
+// Pieces shared by the fused RX kernels (rx_dense.cu, rx_hybrid.cu and the
+// entry points rx_osr.cu, stream_scan.cu, rotate_detect.cu): the window of
+// one detection, its samples rotated and multiplied with the plain PyTorch
+// version's rounding, the first-max rule and the dB epilogue.  Steps (a),
+// (b) and (d) of rx_dense.cu's header.
 //
-// Two window readers instantiate the kernels.  DirectReader is the osr == 1
-// window (window_of).  OsrReader (window_of_osr) is the
-// decimated osr > 1 window and the halo variant of the TPU kernel's
-// padded/slab and direct forms (ops/pallas_rx.py:_shifted_windows,
-// _shifted_windows_direct); rx_osr.cu launches it.
+// Four window readers instantiate the kernels; each says where a window's
+// samples are and how one sample is formed (its `sample` member):
+//   DirectReader  the osr == 1 packet window (window_of);
+//   OsrReader     the decimated osr > 1 window and the halo variant of the
+//                 TPU kernel's padded/slab and direct forms
+//                 (ops/pallas_rx.py:_shifted_windows,
+//                 _shifted_windows_direct); rx_osr.cu launches it;
+//   StreamReader  every stride-aligned window of a continuous stream, times
+//                 the scan down-chirp, with no rotation
+//                 (ops/pallas_stream.py:_stream_kernel); stream_scan.cu;
+//   RowReader     rows of windows already dechirped and windowed, rotated
+//                 by start + rate*i (ops/pallas_detect.py:_detect_kernel);
+//                 rotate_detect.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,9 +36,10 @@ __device__ __forceinline__ bool takes(float v, int k, float bv, int bk) {
 }
 
 struct Window {
-  const float* row_r;   // first sample of the timing-shifted window
+  const float* row_r;   // first sample of the window
   const float* row_i;
   int stride;           // stream samples between window samples (osr)
+  int avail;            // samples in the stream (StreamReader; 0..n)
   float rate;           // CFO derotation rate per sample
   float scale;          // per-packet amplitude normalisation
   float start;          // rotation phase of sample 0
@@ -92,30 +102,6 @@ __device__ __forceinline__ Window window_of_osr(
   return w;
 }
 
-// The osr == 1 reader: S windows per packet.
-struct DirectReader {
-  int S;
-  __host__ __device__ int rows() const { return S; }
-  __device__ __forceinline__ Window operator()(
-      const float* __restrict__ sr, const float* __restrict__ si,
-      const int* __restrict__ t_off, const float* __restrict__ rate,
-      const float* __restrict__ scale, int win, int n) const {
-    return window_of(sr, si, t_off, rate, scale, win, S, n);
-  }
-};
-
-// The #6 reader: nd = S - h0 - h1 windows per packet out of S stream rows.
-struct OsrReader {
-  int nd, S, osr, h0;
-  __host__ __device__ int rows() const { return nd; }
-  __device__ __forceinline__ Window operator()(
-      const float* __restrict__ sr, const float* __restrict__ si,
-      const int* __restrict__ t_off, const float* __restrict__ rate,
-      const float* __restrict__ scale, int win, int n) const {
-    return window_of_osr(sr, si, t_off, rate, scale, win, nd, S, n, osr, h0);
-  }
-};
-
 // (b) sample i: x * scale * e^{j(start + rate*i)} * mult[i], each product
 // rounded as the plain version rounds it (no contraction into FMAs), with
 // the accurate sincosf: the phase reaches hundreds of radians on raw
@@ -136,6 +122,125 @@ __device__ __forceinline__ void rotated_sample(
   *out_i = __fadd_rn(__fmul_rn(fr, m_i), __fmul_rn(fi, m_r));
 }
 
+// The osr == 1 reader: S windows per packet.
+struct DirectReader {
+  int S;
+  __host__ __device__ int rows() const { return S; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    return window_of(sr, si, t_off, rate, scale, win, S, n);
+  }
+  __device__ __forceinline__ void sample(
+      const Window& w, const float* __restrict__ mr,
+      const float* __restrict__ mi, int i, float* out_r,
+      float* out_i) const {
+    rotated_sample(w, mr, mi, i, out_r, out_i);
+  }
+};
+
+// The #6 reader: nd = S - h0 - h1 windows per packet out of S stream rows.
+struct OsrReader {
+  int nd, S, osr, h0;
+  __host__ __device__ int rows() const { return nd; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    return window_of_osr(sr, si, t_off, rate, scale, win, nd, S, n, osr, h0);
+  }
+  __device__ __forceinline__ void sample(
+      const Window& w, const float* __restrict__ mr,
+      const float* __restrict__ mi, int i, float* out_r,
+      float* out_i) const {
+    rotated_sample(w, mr, mi, i, out_r, out_i);
+  }
+};
+
+// The #7 reader: window `win` = b * W + w of stream b (len samples each)
+// reads ext[b, w*stride + i*osr], i < n, and zero past the end of the
+// stream (the plain version's zero padding).  Sample offsets are 64-bit:
+// a stream may hold more than 2^31 samples.  Its sample is x * mult[i]
+// with the plain version's rounding, and no scale or rotation (no sincos).
+struct StreamReader {
+  long long len;        // samples per stream
+  int W;                // windows per stream
+  int stride;           // samples between window starts
+  int osr;              // samples between window samples
+  __host__ __device__ int rows() const { return W; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    const int b = win / W;
+    const int w = win - b * W;
+    const long long first = (long long)w * stride;
+    const long long left = len - first;
+    const long long avail = left <= 0 ? 0 : (left + osr - 1) / osr;
+    const size_t base = (size_t)b * (size_t)len + (size_t)first;
+    Window out;
+    out.row_r = sr + base;
+    out.row_i = si + base;
+    out.stride = osr;
+    out.avail = avail < n ? (int)avail : n;
+    out.rate = 0.f;
+    out.scale = 1.f;
+    out.start = 0.f;
+    return out;
+  }
+  __device__ __forceinline__ void sample(
+      const Window& w, const float* __restrict__ mr,
+      const float* __restrict__ mi, int i, float* out_r,
+      float* out_i) const {
+    float zr = 0.f, zi = 0.f;
+    if (i < w.avail) {
+      zr = __ldg(w.row_r + (size_t)i * w.stride);
+      zi = __ldg(w.row_i + (size_t)i * w.stride);
+    }
+    const float m_r = __ldg(mr + i);
+    const float m_i = __ldg(mi + i);
+    *out_r = __fsub_rn(__fmul_rn(zr, m_r), __fmul_rn(zi, m_i));
+    *out_i = __fadd_rn(__fmul_rn(zr, m_i), __fmul_rn(zi, m_r));
+  }
+};
+
+// The #8 reader: row `win` = b * S + s of a (B*S, n) block of windows that
+// the caller already dechirped and windowed, rotated by
+// e^{j(start[win] + rate[b]*i)} with the plain version's rounding; no
+// scale and no multiplier.
+struct RowReader {
+  int S;
+  const float* start;   // (B*S,) rotation phase of sample 0 of each row
+  __host__ __device__ int rows() const { return S; }
+  __device__ __forceinline__ Window operator()(
+      const float* __restrict__ sr, const float* __restrict__ si,
+      const int* __restrict__ t_off, const float* __restrict__ rate,
+      const float* __restrict__ scale, int win, int n) const {
+    const size_t base = (size_t)win * n;
+    Window out;
+    out.row_r = sr + base;
+    out.row_i = si + base;
+    out.stride = 1;
+    out.rate = __ldg(rate + win / S);
+    out.scale = 1.f;
+    out.start = __ldg(start + win);
+    return out;
+  }
+  __device__ __forceinline__ void sample(
+      const Window& w, const float* __restrict__ mr,
+      const float* __restrict__ mi, int i, float* out_r,
+      float* out_i) const {
+    const float zr = __ldg(w.row_r + i);
+    const float zi = __ldg(w.row_i + i);
+    const float ph = __fadd_rn(w.start, __fmul_rn(w.rate, (float)i));
+    float sn, cs;
+    sincosf(ph, &sn, &cs);
+    *out_r = __fsub_rn(__fmul_rn(zr, cs), __fmul_rn(zi, sn));
+    *out_i = __fadd_rn(__fmul_rn(zr, sn), __fmul_rn(zi, cs));
+  }
+};
+
 // (d) the window's first-max bin, 20log10(sqrt(max)) - 20log10(n) and
 // 20log10(sqrt(sum - max)) - 20log10(n).
 __device__ __forceinline__ void store_detection(
@@ -149,19 +254,20 @@ __device__ __forceinline__ void store_detection(
   pav_out[win] = 20.f * log10f(noise) - scale_db;
 }
 
-// Host launchers of the OsrReader instances, defined beside their kernels
+// Host launchers of the non-direct instances, defined beside their kernels
 // (rx_dense.cu for n <= 512, rx_hybrid.cu for n = 1024 ... 16384) and
-// called by rx_osr.cu.  Each returns the cudaError_t of the launch.
-int launch_dense_osr(const float* sr, const float* si, const int* t_off,
-                     const float* rate, const float* scale, const float* mr,
-                     const float* mi, const float* twr, const float* twi,
-                     int B, const OsrReader& rd, int n, float scale_db,
-                     int* idx, float* pw, float* pav, cudaStream_t stream);
-int launch_hybrid_osr(const float* sr, const float* si, const int* t_off,
-                      const float* rate, const float* scale,
-                      const float* mr, const float* mi, const float* twr,
-                      const float* twi, int B, const OsrReader& rd, int n,
-                      float scale_db, int* idx, float* pw, float* pav,
-                      cudaStream_t stream);
+// called by the entry points rx_osr.cu, stream_scan.cu and
+// rotate_detect.cu.  Each returns the cudaError_t of the launch.
+#define LORA_RX_LAUNCHER(NAME, READER)                                       \
+  int NAME(const float* sr, const float* si, const int* t_off,              \
+           const float* rate, const float* scale, const float* mr,          \
+           const float* mi, const float* twr, const float* twi, int B,      \
+           const READER& rd, int n, float scale_db, int* idx, float* pw,    \
+           float* pav, cudaStream_t stream)
+LORA_RX_LAUNCHER(launch_dense_osr, OsrReader);
+LORA_RX_LAUNCHER(launch_hybrid_osr, OsrReader);
+LORA_RX_LAUNCHER(launch_dense_stream, StreamReader);
+LORA_RX_LAUNCHER(launch_hybrid_stream, StreamReader);
+LORA_RX_LAUNCHER(launch_dense_row, RowReader);
 
 }  // namespace lora_rx

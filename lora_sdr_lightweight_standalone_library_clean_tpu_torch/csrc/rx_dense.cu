@@ -6,7 +6,11 @@
 //   (_shifted_windows_direct), with the dense branch of _dft_mag_argmax and
 //   the dB epilogue of _ablated_detect.  Its OsrReader instances
 //   (rx_common.cuh, launched by rx_osr.cu) are the decimated osr > 1 and
-//   halo windows of the same kernel (padded/slab form, _shifted_windows).
+//   halo windows of the same kernel (padded/slab form, _shifted_windows);
+//   its StreamReader and RowReader instances are the streaming scan
+//   (ops/pallas_stream.py:_stream_kernel, launched by stream_scan.cu) and
+//   the rotate-detect kernel (ops/pallas_detect.py:_detect_kernel,
+//   launched by rotate_detect.cu) at n <= 512.
 //
 // What it computes, per (packet b, symbol s) window of n samples:
 //   (a) the timing-shifted window x[i] = stream[b, s*n + t + i], with the
@@ -88,7 +92,7 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
     for (int h = 0; h < 2; ++h) {
       const int i = lt + h * H;
       const int j = (int)(__brev((unsigned)i) >> (32 - Shape::kLog));
-      lora_rx::rotated_sample(w, mr, mi, i, &wr[j], &wi[j]);
+      rd.sample(w, mr, mi, i, &wr[j], &wi[j]);
     }
   }
   __syncthreads();
@@ -233,13 +237,23 @@ extern "C" int lora_rx_dense(const void* sr, const void* si,
                   (float*)pw, (float*)pav, (cudaStream_t)stream);
 }
 
-int lora_rx::launch_dense_osr(const float* sr, const float* si,
-                              const int* t_off, const float* rate,
-                              const float* scale, const float* mr,
-                              const float* mi, const float* twr,
-                              const float* twi, int B, const OsrReader& rd,
-                              int n, float scale_db, int* idx, float* pw,
-                              float* pav, cudaStream_t stream) {
+// The reader instances that rx_osr.cu, stream_scan.cu and rotate_detect.cu
+// launch (rx_common.cuh).
+namespace lora_rx {
+
+LORA_RX_LAUNCHER(launch_dense_osr, OsrReader) {
   return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
+
+LORA_RX_LAUNCHER(launch_dense_stream, StreamReader) {
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+                  scale_db, idx, pw, pav, stream);
+}
+
+LORA_RX_LAUNCHER(launch_dense_row, RowReader) {
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+                  scale_db, idx, pw, pav, stream);
+}
+
+}  // namespace lora_rx

@@ -10,7 +10,9 @@
 //   (n*osr)-point detection is this form with n = step
 //   (rx_window_detect(wide=True), ops/pallas_rx.py:831-834).  Its
 //   OsrReader instances (rx_common.cuh, launched by rx_osr.cu) are the
-//   decimated osr > 1 and halo windows of the same kernel.
+//   decimated osr > 1 and halo windows of the same kernel; its
+//   StreamReader instance is the streaming scan at n = 1024 ... 4096
+//   (ops/pallas_stream.py:_stream_kernel, launched by stream_scan.cu).
 //
 // What it computes, per (packet b, symbol s) window of n samples: steps
 // (a)-(d) of rx_dense.cu (rx_common.cuh holds the shared pieces): the
@@ -81,7 +83,7 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
   for (int h = 0; h < kSamples; ++h) {
     const int i = lt + h * kThreads;
     const int j = (int)(__brev((unsigned)i) >> (32 - kLog));
-    lora_rx::rotated_sample(w, mr, mi, i, &wr[j], &wi[j]);
+    rd.sample(w, mr, mi, i, &wr[j], &wi[j]);
   }
   __syncthreads();
 
@@ -228,13 +230,18 @@ extern "C" int lora_rx_hybrid(const void* sr, const void* si,
                   (float*)pw, (float*)pav, (cudaStream_t)stream);
 }
 
-int lora_rx::launch_hybrid_osr(const float* sr, const float* si,
-                               const int* t_off, const float* rate,
-                               const float* scale, const float* mr,
-                               const float* mi, const float* twr,
-                               const float* twi, int B, const OsrReader& rd,
-                               int n, float scale_db, int* idx, float* pw,
-                               float* pav, cudaStream_t stream) {
+// The reader instances that rx_osr.cu and stream_scan.cu launch
+// (rx_common.cuh).
+namespace lora_rx {
+
+LORA_RX_LAUNCHER(launch_hybrid_osr, OsrReader) {
   return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
+
+LORA_RX_LAUNCHER(launch_hybrid_stream, StreamReader) {
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+                  scale_db, idx, pw, pav, stream);
+}
+
+}  // namespace lora_rx

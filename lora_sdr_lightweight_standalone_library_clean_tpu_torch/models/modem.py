@@ -413,7 +413,8 @@ def _full_rx_mult(sf: int, bw_scale: int, window: Window):
 
 
 def demodulate(iq_r, iq_i, params: LoraParams,
-               symbol_cap: int | None = None) -> DemodResult:
+               symbol_cap: int | None = None,
+               backend: str = "auto") -> DemodResult:
     """Full-fidelity RX: offset estimation, dechirp, CFO derotation,
     windowing, detection, sync-word extraction (phy.cpp:182-243).
 
@@ -432,8 +433,17 @@ def demodulate(iq_r, iq_i, params: LoraParams,
     by down-chirp x window, as the JAX package's kernel branch does; its jnp
     branch dechirps before it rotates (``models/modem.py:515-525``), a float
     reordering that moves no detection of the reference fixtures.
+
+    ``backend`` takes the JAX package's values: ``"auto"`` and
+    ``"pallas_rx"`` are the fused RX route above; ``"pallas"`` is the
+    two-stage route (``modem.py:506-525``): timing-shifted windows, the
+    down-chirp, then ``models/tones.py::_rotate_detect`` (the window, then
+    the rotate-detect kernel on a CUDA tensor, n <= 512; its plain version
+    on a CPU tensor).
     """
-    n, step = params.n, params.step
+    from .tones import _rotate_detect, _rotation_start, _two_stage
+    two_stage = _two_stage(backend)
+    n, osr, step = params.n, params.osr, params.step
     sample_count = iq_r.shape[-1]
     if sample_count % step != 0:
         raise InvalidArgumentError(
@@ -448,11 +458,23 @@ def demodulate(iq_r, iq_i, params: LoraParams,
     est = _estimate_core(iq_r, iq_i, params, 2, tie_break_idx=False)
     t_off = torch.round(est.time_offset).to(torch.int32)
     rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
-    mr, mi = device_table(_full_rx_mult, params.sf, params.bw_scale,
-                          params.window, device=iq_r.device)
-    idx, power, power_avg = rx_window_detect(
-        iq_r.contiguous(), iq_i.contiguous(), torch.clamp(t_off, -step, step),
-        rate, torch.ones_like(rate), mr, mi, params)
+    if two_stage:
+        zr, zi = _timing_shifted_windows(iq_r, iq_i, t_off, total, step,
+                                         osr, n)
+        dcr, dci = device_table(downchirp_ri, params.sf, params.bw_scale,
+                                device=iq_r.device)
+        ar = zr * dcr - zi * dci
+        ai = zr * dci + zi * dcr
+        idx, power, power_avg = _rotate_detect(
+            ar, ai, rate, _rotation_start(rate, t_off, total, params),
+            params)
+    else:
+        mr, mi = device_table(_full_rx_mult, params.sf, params.bw_scale,
+                              params.window, device=iq_r.device)
+        idx, power, power_avg = rx_window_detect(
+            iq_r.contiguous(), iq_i.contiguous(),
+            torch.clamp(t_off, -step, step), rate, torch.ones_like(rate),
+            mr, mi, params)
     sw0, sw1 = idx[..., 0], idx[..., 1]
     shift = params.sf - 4 if params.sf > 4 else 0
     sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)

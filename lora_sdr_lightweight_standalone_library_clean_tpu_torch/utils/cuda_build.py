@@ -69,6 +69,13 @@ _SIGNATURES = {
     # scale_db, idx, pw, pav, stream
     "lora_rx_osr": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float]
                    + [_c_void_p] * 4,
+    # sr, si, mr, mi, twr, twi, b, len (64-bit), w, stride, n, osr,
+    # scale_db, idx, pw, pav, stream
+    "lora_stream_scan": [_c_void_p] * 6 + [_c_int, ctypes.c_longlong]
+                        + [_c_int] * 4 + [_c_float] + [_c_void_p] * 4,
+    # zr, zi, rate, start, twr, twi, b, s, n, scale_db, idx, pw, pav, stream
+    "lora_rotate_detect": [_c_void_p] * 6 + [_c_int] * 3 + [_c_float]
+                          + [_c_void_p] * 4,
 }
 
 # Filled by load(): library path, build seconds (0.0 when it was cached)

@@ -3,7 +3,8 @@
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  It covers every kernel: the TX kernels at osr 1
 and osr > 1, the RX kernels on osr-1, decimated osr > 1, halo and wide
-windows up to 16384 points.  The file imports neither jax nor the JAX
+windows up to 16384 points, the streaming scan (#7) and the rotate-detect
+kernel (#8).  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -12,7 +13,8 @@ package, so it also runs where only PyTorch is installed:
 Tolerances: TX IQ within 4e-6 (the kernels and their plain version read the
 same table rows and round the same products); RX bins exact and dB within
 0.05 (the kernels' FFT and the plain version's matmul DFT sum in different
-orders).
+orders; the streaming scan's bins on every window with a clear peak,
+power - noise > 3 dB, as tests/test_pallas_stream.py:64-71 holds them).
 """
 from pathlib import Path
 
@@ -22,7 +24,7 @@ import torch
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as T
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_rx, cuda_tx)
+    cuda_detect, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 
@@ -312,3 +314,236 @@ def test_rx_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         cuda_rx.rx_window_detect(zz, zz, t, f, f, m, m, p)
     with pytest.raises(ValueError, match="expected"):
         cuda_rx.rx_window_detect(z, z, t.cpu(), f, f, m, m, p)
+
+
+def _noisy_stream(p, symbols, seed, dev, lead=()):
+    """AWGN (sigma 0.05) streams of ``symbols`` symbols with one 8-byte
+    packet at sample 0 of each, made on the CPU and moved to ``dev``."""
+    rng = np.random.default_rng(seed)
+    length = symbols * p.step
+    shape = lead + (length,)
+    r = rng.standard_normal(shape).astype(np.float32) * 0.05
+    i = rng.standard_normal(shape).astype(np.float32) * 0.05
+    re, im = T.modulate(T.encode(torch.arange(8, dtype=torch.uint8)[None]),
+                        p)
+    cut = min(length, re.shape[-1])
+    r[..., :cut] += 0.5 * re[0, :cut].numpy()
+    i[..., :cut] += 0.5 * im[0, :cut].numpy()
+    return (torch.as_tensor(r, device=dev), torch.as_tensor(i, device=dev))
+
+
+def _assert_scan_matches(got, want):
+    gi, gp, ga = got
+    wi, wp, wa = want
+    clear = (wp - wa) > 3.0
+    assert bool(clear.any())
+    assert torch.equal(gi[clear], wi[clear])
+    assert float((gp - wp).abs().max()) <= 0.05
+    assert float((ga - wa).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("sf,osr,stride_div", [
+    (5, 1, 4), (7, 1, 1), (7, 1, 4), (8, 2, 2), (9, 1, 4), (9, 2, 4),
+    (10, 1, 4), (11, 4, 4), (12, 1, 4), (12, 2, 2)])
+def test_stream_kernel_matches_plain_on_card(cuda_device, sf, osr,
+                                             stride_div):
+    """#7 against its plain version: rx_dense's StreamReader to n = 512,
+    rx_hybrid's above, strided reads at osr > 1."""
+    p = T.LoraParams(sf=sf, osr=osr)
+    stride = p.step // stride_div
+    r, i = _noisy_stream(p, 21, sf * 10 + osr, cuda_device)
+    windows = r.shape[-1] // stride
+    before, own = cuda_stream.KERNEL_LAUNCHES, cuda_stream.STREAM_LAUNCHES
+    got = cuda_stream.stream_window_detect(r, i, p, stride, windows)
+    assert cuda_stream.KERNEL_LAUNCHES == before + 1
+    assert cuda_stream.STREAM_LAUNCHES == own + 1
+    want = cuda_stream.stream_window_detect_ref(r, i, p, stride, windows)
+    torch.cuda.synchronize()
+    _assert_scan_matches(got, want)
+
+
+@pytest.mark.parametrize("sf,osr", [(7, 1), (8, 2), (11, 1)])
+def test_stream_kernel_custom_multiplier_on_card(cuda_device, sf, osr):
+    """A caller's ``dcr``/``dci`` (the scan down-chirp times a tone of 5
+    bins) reaches the kernel, on rx_dense's and rx_hybrid's StreamReader:
+    every clear window's bin moves by 5."""
+    from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel \
+        import streaming
+    p = T.LoraParams(sf=sf, osr=osr)
+    stride = p.step // 4
+    r, i = _noisy_stream(p, 21, sf * 10 + osr + 1, cuda_device)
+    windows = r.shape[-1] // stride
+    dcr, dci = streaming._scan_downchirp(p)
+    dc = (dcr + 1j * dci) * np.exp(2j * np.pi * 5 * np.arange(p.n) / p.n)
+    dcr, dci = (torch.as_tensor(a.astype(np.float32), device=cuda_device)
+                for a in (dc.real, dc.imag))
+    got = cuda_stream.stream_window_detect(r, i, p, stride, windows, dcr, dci)
+    want = cuda_stream.stream_window_detect_ref(r, i, p, stride, windows,
+                                                dcr, dci)
+    plain = cuda_stream.stream_window_detect_ref(r, i, p, stride, windows)
+    torch.cuda.synchronize()
+    _assert_scan_matches(got, want)
+    clear = (plain[1] - plain[2]) > 3.0
+    assert torch.equal(got[0][clear], (plain[0][clear] + 5) % p.n)
+
+
+def test_stream_kernel_batch_and_padding_on_card(cuda_device):
+    """A (2, 3) batch of streams, with windows running past each stream's
+    end (zeros, and -inf dB where a window lies wholly past it: the last
+    six)."""
+    p = T.LoraParams(sf=7, osr=2)
+    stride = p.step // 4
+    r, i = _noisy_stream(p, 9, 5, cuda_device, lead=(2, 3))
+    inside = r.shape[-1] // stride
+    windows = inside + 6
+    got = cuda_stream.stream_window_detect(r, i, p, stride, windows)
+    want = cuda_stream.stream_window_detect_ref(r, i, p, stride, windows)
+    torch.cuda.synchronize()
+    assert got[0].shape == (2, 3, windows)
+    past = slice(inside, windows)
+    for a, b in zip(got, want):
+        assert torch.equal(a[..., past], b[..., past])
+    assert bool(torch.isneginf(got[1][..., past]).all())
+    live = slice(0, inside)
+    _assert_scan_matches(*[[a[..., live] for a in x] for x in (got, want)])
+
+
+def test_stream_kernel_beyond_2_31_samples(cuda_device):
+    """One stream of 2^31 + 2^20 samples (sf7, stride one symbol) with a
+    packet at its start and one at its end: the kernel's 64-bit offsets
+    give the plain version's first and last windows."""
+    p = T.LoraParams(sf=7)
+    length = 2 ** 31 + 2 ** 20
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    r = torch.randn(length, generator=gen, device=cuda_device) * 0.05
+    i = torch.randn(length, generator=gen, device=cuda_device) * 0.05
+    re, im = T.modulate(T.encode(torch.arange(8, dtype=torch.uint8,
+                                              device=cuda_device)[None]), p)
+    plen = re.shape[-1]
+    for lo in (0, length - plen):
+        r[lo:lo + plen] += re[0]
+        i[lo:lo + plen] += im[0]
+    windows = length // p.step
+    got = cuda_stream.stream_window_detect(r, i, p, p.step, windows)
+    k = plen // p.step + 2
+    want_head = cuda_stream.stream_window_detect_ref(
+        r[:k * p.step], i[:k * p.step], p, p.step, k)
+    tail = (windows - k) * p.step
+    want_tail = cuda_stream.stream_window_detect_ref(
+        r[tail:], i[tail:], p, p.step, k)
+    torch.cuda.synchronize()
+    _assert_scan_matches([a[:k] for a in got], want_head)
+    _assert_scan_matches([a[-k:] for a in got], want_tail)
+    del r, i
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7, 8, 9])
+def test_rotate_detect_kernel_matches_plain_on_card(cuda_device, sf):
+    """#8 against its plain version on tones with |cfo| up to half a bin,
+    AWGN, rotation rates ~ N(0, 1e-3), windowed by ones and by Hann."""
+    n = 1 << sf
+    rng = np.random.default_rng(sf)
+    b, s = 16, 10
+    k = rng.integers(0, n, (b, s, 1)) + rng.uniform(-0.5, 0.5, (b, s, 1))
+    z = np.exp(2j * np.pi * k * np.arange(n) / n)
+    z = z + (rng.standard_normal(z.shape)
+             + 1j * rng.standard_normal(z.shape)) * 0.1
+    rate = torch.as_tensor((rng.standard_normal(b) * 1e-3).astype(np.float32),
+                           device=cuda_device)
+    start = torch.as_tensor(rng.standard_normal((b, s)).astype(np.float32),
+                            device=cuda_device)
+    hann = T.models.modem.window_table(n, T.Window.HANN)
+    for w in (np.ones(n, np.float32), hann):
+        zr = torch.as_tensor((z.real * w).astype(np.float32),
+                             device=cuda_device)
+        zi = torch.as_tensor((z.imag * w).astype(np.float32),
+                             device=cuda_device)
+        before, own = cuda_detect.KERNEL_LAUNCHES, cuda_detect.DETECT_LAUNCHES
+        gi, gp, ga = cuda_detect.fused_rotate_detect(zr, zi, rate, start)
+        assert cuda_detect.KERNEL_LAUNCHES == before + 1
+        assert cuda_detect.DETECT_LAUNCHES == own + 1
+        wi, wp, wa = cuda_detect.fused_rotate_detect_ref(zr, zi, rate, start)
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi)
+        assert float((gp - wp).abs().max()) <= 0.05
+        assert float((ga - wa).abs().max()) <= 0.05
+
+
+def test_backend_pallas_on_card_matches_cpu(cuda_device):
+    """demodulate_tones and demodulate with backend="pallas" launch the
+    rotate-detect kernel and not the fused RX.  The tones route gives the
+    CPU plain route's symbols and sync words; the full RX gives the card's
+    auto route's (on the reference's own noise-free modulation its raw-chirp
+    estimate is ill-conditioned, PARITY.md defect 1, so card and CPU
+    estimates may round to other timings)."""
+    p = T.LoraParams(sf=7)
+    pay = np.random.default_rng(2).integers(0, 256, (8, 16)).astype(np.uint8)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        syms = T.encode(torch.as_tensor(pay, device=dev))
+        re, im = T.modulate(syms, p)
+        dr, di = T.dechirp(re, im, p)
+        det, rx = cuda_detect.DETECT_LAUNCHES, cuda_rx.KERNEL_LAUNCHES
+        tones = T.demodulate_tones(dr, di, p, backend="pallas")
+        full = T.demodulate(re, im, p, backend="pallas")
+        on_card = dev.type == "cuda"
+        assert cuda_detect.DETECT_LAUNCHES == det + 2 * on_card
+        assert cuda_rx.KERNEL_LAUNCHES == rx
+        auto = T.demodulate(re, im, p)
+        assert torch.equal(full.symbols, auto.symbols)
+        assert torch.equal(full.sync_word, auto.sync_word)
+        out.append([t.cpu() for t in (tones.symbols, tones.sync_word)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    dec, _ = T.decode(out[0][0])
+    assert torch.equal(dec, torch.as_tensor(pay))
+
+
+def test_stream_and_detect_kernels_reject_outside_their_domain(cuda_device):
+    """#7 takes osr | stride | step; #8 takes n <= 512 and names
+    backend='auto' for sf10-12."""
+    p = T.LoraParams(sf=7, osr=2)
+    z = torch.zeros(4 * p.step, device=cuda_device)
+    for stride in (3, 96):          # osr does not divide it; not | step
+        with pytest.raises(T.errors.InvalidArgumentError, match="stride"):
+            cuda_stream.stream_window_detect(z, z, p, stride, 4)
+    zz = torch.zeros(1, 2, 1024, device=cuda_device)
+    f = torch.zeros(1, device=cuda_device)
+    with pytest.raises(T.errors.InvalidArgumentError, match="auto"):
+        cuda_detect.fused_rotate_detect(zz, zz, f, torch.zeros(
+            1, 2, device=cuda_device))
+    p10 = T.LoraParams(sf=10)
+    z10 = torch.zeros(1, 4 * p10.step, device=cuda_device)
+    with pytest.raises(T.errors.InvalidArgumentError, match="auto"):
+        T.demodulate_tones(z10, z10, p10, backend="pallas")
+
+
+def test_receive_stream_on_card_matches_cpu(cuda_device):
+    """The streaming receiver through #7 and the RX kernels recovers what
+    the CPU plain path recovers: starts, bytes, CRC verdicts, sync words."""
+    p = T.LoraParams(sf=7)
+    rng = np.random.default_rng(4)
+    plen = T.packet_samples(p, 16)
+    offsets = [512, 5003, 9000, 11777, 20011]
+    pay = rng.integers(0, 256, (len(offsets), 8)).astype(np.uint8)
+    re, im = T.modulate(T.encode(torch.as_tensor(pay)), p)
+    sr = rng.standard_normal(32768).astype(np.float32) * 0.05
+    si = rng.standard_normal(32768).astype(np.float32) * 0.05
+    for k, g in enumerate(offsets):
+        sr[g:g + plen] += re[k].numpy()
+        si[g:g + plen] += im[k].numpy()
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = cuda_stream.STREAM_LAUNCHES
+        pk, _ = T.receive_stream(torch.as_tensor(sr, device=dev),
+                                 torch.as_tensor(si, device=dev), p,
+                                 payload_symbols=16, max_packets=8)
+        assert cuda_stream.STREAM_LAUNCHES == before + (dev.type == "cuda")
+        out.append(pk)
+    gpu, cpu = out
+    for f in ("payload", "crc_ok", "valid", "start", "sync_word",
+              "n_candidates", "n_dropped"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert gpu.start[gpu.valid].tolist() == offsets
+    assert torch.equal(gpu.payload[:5].cpu(), torch.as_tensor(pay))

@@ -286,6 +286,8 @@ def test_port_sources_import_no_jax():
 def test_port_import_loads_no_jax_module():
     code = (f"import sys, {PORT}\n"
             f"import {PORT}.ops.cuda_tx, {PORT}.ops.cuda_rx\n"
+            f"import {PORT}.ops.cuda_stream, {PORT}.ops.cuda_detect\n"
+            f"import {PORT}.parallel.streaming, {PORT}.parallel.receiver\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib') or m.startswith('"
             "lora_sdr_lightweight_standalone_library_clean_tpu.')]\n"
@@ -301,6 +303,8 @@ def test_public_names():
                  "modulate_dechirped", "estimate_offsets", "dechirp",
                  "to_complex", "from_complex", "crc_sx1272", "DemodResult",
                  "OffsetEstimate", "demodulate_tones", "demodulate",
-                 "compensate_offsets", "demodulate_wide"):
+                 "compensate_offsets", "demodulate_wide", "streaming",
+                 "receive_stream", "stream_rx_init", "packet_samples",
+                 "StreamRxState", "RecoveredPackets"):
         assert hasattr(T, name), name
         assert name == "params_from_reference" or hasattr(J, name), name

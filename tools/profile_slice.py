@@ -5,6 +5,7 @@ Run from the root of a checkout:
 
     python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--osr 1]
                                    [--packets 8192] [--iters 5] [--out PATH]
+                                   [--stream]
 
 It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
 the given sf, bandwidth and oversampling, CR4-5, on random 32-byte payloads
@@ -13,7 +14,14 @@ the given sf, bandwidth and oversampling, CR4-5, on random 32-byte payloads
 slice).  At BW250/500 with osr >= bw_scale the receiver is the injective
 ``demodulate_wide`` instead (``--sf 12 --bw 500000 --osr 4 --packets 64``
 and ``--sf 9 --bw 250000 --osr 2 --packets 1024`` are ``chip_smoke.py``'s
-wide slices).  It reports, all from one process:
+wide slices).  With ``--stream`` it profiles the streaming receiver
+instead: ``chip_smoke.py``'s stream slice of that many packets (one
+continuous stream, ``receive_stream`` in one call; ``--stream --packets
+8192`` is S7, ``--stream --sf 12 --packets 256`` S12, ``--stream --sf 9
+--bw 250000 --osr 2 --packets 1024`` SW), in the stages of
+``receive_stream``: stream scan (kernel #7), start finding, selection of
+the owned starts, extraction, dechirp, demodulation, decode.  It reports,
+all from one process:
 
 - wall ms per iteration: CUDA events over ``--iters`` iterations after a
   warm-up, without the profiler;
@@ -29,8 +37,9 @@ wide slices).  It reports, all from one process:
 
 The report starts with the ``nvidia-smi`` name/power-limit line, is
 printed, and is written to ``--out`` (default
-``build/profile_sf<sf>_bw<kHz>_osr<osr>.txt``).  It exits nonzero without a CUDA
-card or when the profiler records no device activity.
+``build/profile_sf<sf>_bw<kHz>_osr<osr>.txt``, ``profile_stream_...`` with
+``--stream``).  It exits nonzero without a CUDA card or when the profiler
+records no device activity.
 """
 from __future__ import annotations
 
@@ -49,6 +58,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as lora  # noqa: E402
+from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (  # noqa: E402
+    receiver, streaming)
 
 PAYLOAD = 32
 
@@ -88,6 +99,58 @@ def _stages(payload, p):
                    (demod.__name__, dem), ("decode", dec)]
 
 
+def _stream_stages(sr, si, p, count, gate):
+    """``receive_stream``'s stages in its order (one call, no carried
+    state), each thunk feeding the next."""
+    state = {}
+    wide = receiver._resolve_wide(p, None)
+    stride = receiver._default_stride(p, wide)
+    plen = lora.packet_samples(p, 2 * PAYLOAD)
+    chunk_len = sr.shape[-1]
+    demod = lora.demodulate_wide if wide else lora.demodulate_tones
+    init = lora.stream_rx_init(p, 2 * PAYLOAD, device=sr.device)
+
+    def scan():
+        state["ext"] = (torch.cat([init.tail_r, sr]),
+                        torch.cat([init.tail_i, si]))
+        state["scan"] = streaming.stream_scan(*state["ext"], p,
+                                              stride=stride)
+
+    def starts():
+        state["mask"], state["start"] = streaming.find_packet_starts(
+            state["scan"], p, stride=stride, power_gate_db=gate,
+            dedupe_tol=max(2, p.osr) if wide else 2,
+            max_mis=receiver._wide_max_mis(p, stride) if wide else None)
+
+    def select():
+        owned = (state["mask"] & (state["start"] > 0)
+                 & (state["start"] <= chunk_len))
+        sentinel = plen + chunk_len + 1
+        cand = torch.where(owned, state["start"], sentinel)
+        first = torch.topk(cand, count, largest=False, sorted=True).values
+        state["valid"] = first < sentinel
+        state["at"] = torch.clamp(torch.where(state["valid"], first, 0), 0,
+                                  chunk_len)
+
+    def extract():
+        state["pkt"] = tuple(x.unfold(0, plen, 1).index_select(0, state["at"])
+                             for x in state["ext"])
+
+    def dechirp():
+        state["iq"] = lora.dechirp(*state["pkt"], p)
+
+    def dem():
+        state["res"] = demod(*state["iq"], p)
+
+    def dec():
+        state["dec"], state["ok"] = lora.decode(state["res"].symbols)
+
+    return state, [("stream_scan", scan), ("find_packet_starts", starts),
+                   ("select owned starts", select), ("extract", extract),
+                   ("dechirp", dechirp), (demod.__name__, dem),
+                   ("decode", dec)]
+
+
 def _wall_ms(run, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -125,6 +188,12 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--stream", action="store_true",
+                    help="profile receive_stream on chip_smoke.py's stream "
+                         "slice of --packets packets")
+    ap.add_argument("--power-gate-db", type=float, default=5.0,
+                    help="receive_stream's sync gate (chip_smoke.py's S7 "
+                         "and S12 pass 4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
@@ -132,10 +201,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     p = lora.LoraParams(sf=args.sf, bw=args.bw, osr=args.osr, cr="4/5")
     rng = np.random.default_rng(args.seed)
-    payload = torch.as_tensor(
-        rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
-        device=dev)
-    state, stages = _stages(payload, p)
+    if args.stream:
+        from chip_smoke import _stream_slice
+        sr, si, payload, _, planted = _stream_slice(p, args.packets, rng, dev)
+        state, stages = _stream_stages(sr, si, p, args.packets,
+                                       args.power_gate_db)
+        what = (f"receive_stream on one stream of {sr.shape[-1]:,} samples "
+                f"({args.packets} packets, gate {args.power_gate_db} dB)")
+    else:
+        payload = torch.as_tensor(
+            rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
+            device=dev)
+        state, stages = _stages(payload, p)
+        what = f"{stages[2][0]}, {args.packets} packets x {PAYLOAD} B"
 
     def run():
         for _, fn in stages:
@@ -144,7 +222,12 @@ def main() -> int:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
-    if p.osr == 1 or _wide(p):
+    if args.stream:
+        assert bool(state["valid"].all()), "the stream lost packets"
+        plen = lora.packet_samples(p, 2 * PAYLOAD)
+        assert torch.equal(state["at"] - plen, planted), "starts"
+        assert torch.equal(state["dec"], payload), "the stream did not decode"
+    elif p.osr == 1 or _wide(p):
         assert torch.equal(state["dec"], payload), "the slice did not decode"
     else:
         # the decimated receiver reads the last symbol's edge row at
@@ -177,8 +260,8 @@ def main() -> int:
     lines = [
         _smi(),
         f"torch {torch.__version__} cuda {torch.version.cuda}; sf{args.sf} "
-        f"BW{args.bw // 1000} osr{args.osr} through {stages[2][0]}, "
-        f"{args.packets} packets x {PAYLOAD} B, {args.iters} iterations",
+        f"BW{args.bw // 1000} osr{args.osr} through {what}, "
+        f"{args.iters} iterations",
         f"wall per iteration {wall:.3f} ms (CUDA events, no profiler); "
         f"device busy {busy:.3f} ms per iteration ({launches:.0f} device "
         f"activities); idle share {1.0 - busy / wall:.3f}",
@@ -189,12 +272,13 @@ def main() -> int:
                      f"  {name[:110]}")
     lines.append("each stage alone, median ms: host enqueue / wall")
     for name, (enq, tot) in per_stage.items():
-        lines.append(f"  {name:20s} {statistics.median(enq):8.3f} / "
+        lines.append(f"  {name:22s} {statistics.median(enq):8.3f} / "
                      f"{statistics.median(tot):8.3f}")
     report = "\n".join(lines)
     print(report)
-    out = Path(args.out or f"build/profile_sf{args.sf}_bw{args.bw // 1000}"
-               f"_osr{args.osr}.txt")
+    kind = "stream_" if args.stream else ""
+    out = Path(args.out or f"build/profile_{kind}sf{args.sf}_bw"
+               f"{args.bw // 1000}_osr{args.osr}.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(report + "\n")
     return 0

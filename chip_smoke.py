@@ -10,7 +10,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
 1. environment: card name and power limit, torch/CUDA versions, compute
    capability 9.0, float32 matmuls in full precision (no TF32);
 2. build: compile ``csrc/*.cu`` with nvcc (``utils/cuda_build.py``), one
-   process per source, started together;
+   process per source, started together; print each entry function's
+   registers, spills and stack from ptxas's ``-v`` report, and fail if an
+   RX kernel instance (``rx_dense_kernel``, ``rx_hybrid_kernel``) spills;
 3. kernel vs plain on the card, 64 packets: the TX kernels against
    ``tx_tone_synth_ref`` and the RX kernels against
    ``rx_window_detect_ref`` at sf2..12 (dense kernels to sf9, the factored
@@ -87,7 +89,10 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    and Msamples/s of every stream slice, and each kernel alone beside its
    plain version at each slice's shapes, with CUDA events, beside its
    bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
-   larger).
+   larger); beside ``rx_hybrid`` at sf12 and A and ``stream_scan`` at S7
+   and S12, ``torch.fft.fft`` alone over the same windows already
+   materialised as complex64 (the FFT step only, a yardstick the port
+   never calls).
 
 Every slice and full-RX run sets the launch counts to 0 just before it
 and reads them just after; a kernel of that path that did not launch
@@ -100,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -247,14 +253,60 @@ def phase_environment() -> str:
     return smi
 
 
+def _kernel_label(mangled: str) -> str:
+    """``rx_hybrid_kernel<4096, StreamReader>`` from a mangled RX kernel
+    instance name, the bare kernel name from another one."""
+    m = re.search(r"(rx_[a-z]+_kernel)ILi(\d+)EN7lora_rx(\d+)", mangled)
+    if m:
+        reader = mangled[m.end():m.end() + int(m.group(3))]
+        return f"{m.group(1)}<{m.group(2)}, {reader}>"
+    m = re.search(r"[a-z]+(?:_[a-z]+)*_kernel", mangled)
+    return m.group(0) if m else mangled
+
+
+def _ptxas_report(log: str) -> list[tuple]:
+    """(kernel, registers, spill stores, spill loads, stack bytes) of each
+    entry function in nvcc's -Xptxas -v report."""
+    rows, entry, props, spill = [], None, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props == entry:
+            spill = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((_kernel_label(entry), int(m.group(1)), spill[1],
+                         spill[2], spill[0]))
+            entry = None
+    return rows
+
+
 def phase_build() -> None:
+    """Build the kernels; print each entry function's registers and
+    spills, and fail if an RX kernel instance spills."""
     cuda_build.load()
     info = cuda_build.BUILD_INFO
     print(f"phase 2 build: {info['seconds']:.2f} s -> {info['path']}",
           flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    rows = _ptxas_report(info["log"])
+    for name, regs, stores, loads, stack in rows:
+        print(f"  ptxas: {name}: {regs} registers, {stores} B spill stores, "
+              f"{loads} B spill loads, {stack} B stack")
+    rx = [r for r in rows if r[0].startswith("rx_")]
+    # a fresh build reports every RX instance: 4 readers x 8 dense sizes,
+    # 3 readers x 5 hybrid sizes (a cached library has no report)
+    assert not info["log"] or len(rx) == 4 * 8 + 3 * 5, len(rx)
+    spilled = [r[0] for r in rx if r[2] or r[3]]
+    assert not spilled, f"RX kernel instances spill: {spilled}"
 
 
 def _rx_kernel_name(p, wide: bool = False, halo=(0, 0)) -> str:
@@ -1120,6 +1172,34 @@ def _detect_bound(args, kw) -> tuple[float, str]:
     return _bound(nbytes, rows * n * (10 + 5 + 5 * np.log2(n)))
 
 
+class _Windows(Exception):
+    """Carries the windows a plain version hands to ``detect_ri``."""
+
+
+def _cufft_ms(module, plain, call) -> float:
+    """The yardstick of the FFT step alone: ``torch.fft.fft`` over the
+    windows that the plain version of a kernel call hands to ``detect_ri``
+    (the same windows the kernel transforms), already materialised as
+    complex64, CUDA events.  It is not the kernel's function (no window
+    read, no rotation, no reduction), so ``library_ms`` stays null; the
+    port never calls it."""
+    def grab(zr, zi):
+        raise _Windows(torch.complex(zr, zi))
+    args, kw = call
+    saved = module.detect_ri
+    module.detect_ri = grab
+    try:
+        plain(*args, **kw)
+    except _Windows as caught:
+        z = caught.args[0]
+    finally:
+        module.detect_ri = saved
+    ms = _time_ms(lambda: torch.fft.fft(z))
+    del z
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _kernel_alone(kernel, plain, call, bound) -> tuple:
     """(ms, plain ms, bound ms, bound by) of one kernel call recorded on
     the main path, run again alone."""
@@ -1131,8 +1211,10 @@ def _kernel_alone(kernel, plain, call, bound) -> tuple:
 def phase_timing(slices, full_rx, smi, streams, route):
     """Packets/s of each slice through the kernels and the plain versions,
     and each kernel alone beside its plain version at the slice's shapes:
-    {(kernel, slice label): (ms, plain ms, bound ms, bound by)}."""
-    times = {}
+    {(kernel, slice label): (ms, plain ms, bound ms, bound by)}, and the
+    cuFFT yardstick {(kernel, slice label): ms} of rx_hybrid at sf12 and A
+    and stream_scan at S7 and S12."""
+    times, cufft = {}, {}
     lines = []
     for label, sl in slices.items():
         p, payload, allsyms = sl["p"], sl["payload"], sl["allsyms"]
@@ -1167,6 +1249,10 @@ def phase_timing(slices, full_rx, smi, streams, route):
             ms, plain_ms, bound_ms, _ = times[name, label]
             line += (f"; {name} {ms:.4f} ms vs plain {plain_ms:.4f} ms "
                      f"(bound {bound_ms:.4f} ms)")
+        if (rx, label) in CUFFT_AT:
+            cufft[rx, label] = _cufft_ms(cuda_rx, cuda_rx.rx_window_detect_ref,
+                                         sl["rx_call"])
+            line += f"; cuFFT of the same windows {cufft[rx, label]:.4f} ms"
         lines.append(line)
     for label, st in streams.items():
         p, sr, si, kw, count = (st[k] for k in ("p", "sr", "si", "kw",
@@ -1184,6 +1270,13 @@ def phase_timing(slices, full_rx, smi, streams, route):
         k_ms, kp_ms, kb_ms, kb_by = times["stream_scan", label]
         msamples = sr.shape[-1] / 1e6
         ext_bytes = st["scan_call"][0][0].numel() * 8
+        yard = ""
+        if ("stream_scan", label) in CUFFT_AT:
+            cufft["stream_scan", label] = _cufft_ms(
+                cuda_stream, cuda_stream.stream_window_detect_ref,
+                st["scan_call"])
+            yard = (f"; cuFFT of the same windows "
+                    f"{cufft['stream_scan', label]:.4f} ms")
         lines.append(
             f"stream {label} {_describe(p)} {count / (ms / 1e3):,.0f} "
             f"packets/s, {msamples / (ms / 1e3):,.1f} Msamples/s "
@@ -1193,7 +1286,7 @@ def phase_timing(slices, full_rx, smi, streams, route):
             f"({plain_ms:.3f} ms) through the plain versions; stream_scan "
             f"{k_ms:.4f} ms vs plain {kp_ms:.4f} ms (bound {kb_ms:.4f} ms "
             f"by {kb_by}; reads the stream at "
-            f"{ext_bytes / (k_ms * 1e-3) / 1e12:.3f} TB/s)")
+            f"{ext_bytes / (k_ms * 1e-3) / 1e12:.3f} TB/s){yard}")
     times["rotate_detect", "sf7"] = _kernel_alone(
         cuda_detect.fused_rotate_detect, cuda_detect.fused_rotate_detect_ref,
         route["call"], _detect_bound)
@@ -1204,9 +1297,12 @@ def phase_timing(slices, full_rx, smi, streams, route):
                  f"plain {plain_ms:.4f} ms (bound {bound_ms:.4f} ms by "
                  f"{bound_by})")
     print(f"phase 7 timing [{smi}]: " + " | ".join(lines), flush=True)
-    return times
+    return times, cufft
 
 
+# Where phase 7 times torch.fft.fft beside a kernel (the cuFFT yardstick).
+CUFFT_AT = {("rx_hybrid", "sf12"), ("rx_hybrid", "A"), ("stream_scan", "S7"),
+            ("stream_scan", "S12")}
 # Each kernel's line entry: the slice whose shapes it is timed at, and the
 # TPU kernel it replaces.
 KERNEL_LINE = (
@@ -1257,7 +1353,7 @@ def run_phases(dev, rng, smi) -> list[dict]:
                for label, p, count, gate in STREAMS}
     full_rx, launches = phase_full_rx(dev, rng)
     route = phase_detect_route(dev, slices, full_rx)
-    times = phase_timing(slices, full_rx, smi, streams, route)
+    times, cufft = phase_timing(slices, full_rx, smi, streams, route)
     launches["rotate_detect"] += route["launches"]
     err["rotate_detect"] = max(err["rotate_detect"], route["err"])
     for sl in list(slices.values()) + list(streams.values()):
@@ -1279,12 +1375,15 @@ def run_phases(dev, rng, smi) -> list[dict]:
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None,
                  "timed_at": label}
+        if (name, label) in cufft:
+            entry["cufft_ms"] = cufft[name, label]
         for other, at, key in (("rx_hybrid", "A", "at_16384"),
                                ("stream_scan", "S12", "at_4096")):
             if name == other:
                 ms, plain_ms, bound_ms, bound_by = times[name, at]
                 entry[key] = {"ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by}
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "cufft_ms": cufft[name, at]}
         if name == "rotate_detect":   # the two-stage route against auto
             entry["route_db_gap_vs_auto"] = route["gap"]
         kernels.append(entry)

@@ -257,11 +257,13 @@ __device__ __forceinline__ void store_detection(
 // Host launchers of the non-direct instances, defined beside their kernels
 // (rx_dense.cu for n <= 512, rx_hybrid.cu for n = 1024 ... 16384) and
 // called by the entry points rx_osr.cu, stream_scan.cu and
-// rotate_detect.cu.  Each returns the cudaError_t of the launch.
+// rotate_detect.cu.  tw/bins are the FFT plan's float32 (K, 2) twiddles
+// and int32 (n,) natural bins (ops/cuda_rx.py::_fft_plan, rx_fft.cuh).
+// Each returns the cudaError_t of the launch.
 #define LORA_RX_LAUNCHER(NAME, READER)                                       \
   int NAME(const float* sr, const float* si, const int* t_off,              \
            const float* rate, const float* scale, const float* mr,          \
-           const float* mi, const float* twr, const float* twi, int B,      \
+           const float* mi, const float* tw, const int* bins, int B,        \
            const READER& rd, int n, float scale_db, int* idx, float* pw,    \
            float* pav, cudaStream_t stream)
 LORA_RX_LAUNCHER(launch_dense_osr, OsrReader);

@@ -19,152 +19,156 @@
 //   (b) z[i] = x[i] * scale[b] * e^{j(start + rate[b]*i)} * mult[i], with
 //       start = rate[b] * (s*n + t), each product rounded as the plain
 //       PyTorch version rounds it (no contraction into FMAs);
-//   (c) an n-point radix-2 FFT in shared memory, float32 throughout, with
-//       twiddles from a host table built in float64 (the TPU multiplies by
-//       a dense DFT matrix only because it has no FFT);
+//   (c) the n-point FFT (rx_fft.cuh), float32 throughout, with twiddles
+//       from a host table built in float64 (the TPU multiplies by a dense
+//       DFT matrix only because it has no FFT);
 //   (d) |X|^2, the first maximum (lowest bin on ties, NaN counting as the
 //       largest value, like torch.argmax and jnp.argmax), the sum, and
 //       20log10(sqrt(max)) - 20log10(n), 20log10(sqrt(sum - max)) - 20log10(n).
 //
+// The design.  A window belongs to T = n/16 lanes of one warp (one lane
+// for n <= 16), each lane holding 16 complex values in registers (all n of
+// them for n <= 16): lane t loads samples t + q*T, q < 16, runs their
+// 16-point DFT in registers (pass 0 of the plan), multiplies by the plan's
+// twiddles, then log2(T) radix-2 passes pair lane t with lane t ^ h by
+// __shfl_xor_sync, the data never leaving registers.  A warp holds 32/T
+// windows and a block of 256 threads 8 warps; the kernel has no block
+// barrier and no shared memory.  The first-max reduction reads each
+// register's natural bin from the plan's `bins` table and runs over the
+// window's T lanes by shuffles.
+//
 // What bounds it on the H100.  Each sample is read once from device memory
 // (8 B of re/im) and each window writes 12 B, so the floor is the stream
-// read.  The work per sample is one sincos, a few multiplies and log2(n)
-// shared-memory butterfly stages, each behind a block barrier.  The design
-// keeps every intermediate in shared memory and registers: the windows and
-// the spectrum never touch device memory.  One block holds one window of
-// n/2 threads (one butterfly per thread per stage), or 128 / (n/2) windows
-// when n < 256, so every block has at least 128 threads.  When a window has
-// fewer than 32 threads (n <= 32), the warp reduction runs in segments of
-// n/2 lanes, so it never mixes two windows.  Steps (a), (b) and the dB
-// epilogue of (d) live in rx_common.cuh, shared with rx_hybrid.cu (n =
-// 1024 ... 16384).
+// read, or at the stream scan's overlaps the 5 n log2 n float32 operations
+// per window.  Per sample the kernel does one sincos where the reader
+// rotates, a 16-point DFT in registers and log2(n/16) shuffled radix-2
+// stages.  As built, the instruction issue bounds it: the StreamReader
+// instance at 128 points runs about 1,735 instructions a thread, its warp
+// holding four windows, and instructions x warps / (4 issue slots x 132
+// SMs) comes to ~90 % of the measured time (PERF.md); each shuffled
+// stage costs two shuffles, two adds and a complex product a value, the
+// product wasted on the lower lane.  Steps (a), (b) and the dB epilogue of
+// (d) live in rx_common.cuh, shared with rx_hybrid.cu (n = 1024 ...
+// 16384).
 #include <cuda_runtime.h>
 #include <climits>
 
 #include "rx_common.cuh"
+#include "rx_fft.cuh"
 
 namespace {
 
+using lora_rx::brev;
 using lora_rx::ilog2;
 using lora_rx::takes;
 
 template <int N>
-struct RxShape {
-  static constexpr int kHalf = N / 2;                    // threads / window
-  static constexpr int kWindows = kHalf >= 128 ? 1 : 128 / kHalf;
-  static constexpr int kThreads = kWindows * kHalf;
-  static constexpr int kSeg = kHalf < 32 ? kHalf : 32;  // lanes / reduction
-  static constexpr int kWarps = kHalf / kSeg;            // segments / window
-  static constexpr int kLog = ilog2(N);
+struct DensePlan {
+  static constexpr int kV = N < 16 ? N : 16;           // values per lane
+  static constexpr int kLanes = N / kV;                 // lanes per window
+  static constexpr int kThreads = 256;
+  static constexpr int kWindows = kThreads / kLanes;    // per block
+  static constexpr int kPasses = 1 + ilog2(kLanes);
 };
 
+// Radix-2 pass P >= 1 across the window's lanes: lane t pairs with t ^ H,
+// H = lanes >> P; the lower lane keeps a + b, the upper one takes
+// (a - b) * W_{2H}^{t mod H}, from the table at TABLE (none in the last
+// pass, whose twiddle is 1).
+template <int N, int P, int TABLE>
+__device__ __forceinline__ void lane_pass(float2* x,
+                                          const float2* __restrict__ tw,
+                                          int t) {
+  using Plan = DensePlan<N>;
+  constexpr int H = Plan::kLanes >> P;
+  constexpr bool kLast = P == Plan::kPasses - 1;
+  const bool upper = (t & H) != 0;
+  const float sgn = upper ? -1.f : 1.f;   // fma(sgn, own, other): a -/+ b
+  float2 w = make_float2(1.f, 0.f);
+  if constexpr (!kLast) {
+    if (upper) w = __ldg(tw + TABLE + (t & (H - 1)));
+  }
+#pragma unroll
+  for (int j = 0; j < Plan::kV; ++j) {
+    const float ox = __shfl_xor_sync(0xffffffffu, x[j].x, H);
+    const float oy = __shfl_xor_sync(0xffffffffu, x[j].y, H);
+    const float2 d = make_float2(__fmaf_rn(sgn, x[j].x, ox),
+                                 __fmaf_rn(sgn, x[j].y, oy));
+    x[j] = kLast ? d : lora_rx::cmul(d, w);
+  }
+  if constexpr (!kLast) lane_pass<N, P + 1, TABLE + H>(x, tw, t);
+}
+
 template <int N, class Reader>
-__global__ void __launch_bounds__(RxShape<N>::kThreads)
+__global__ void __launch_bounds__(DensePlan<N>::kThreads)
 rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                 const int* __restrict__ t_off,
                 const float* __restrict__ rate,
                 const float* __restrict__ scale,
                 const float* __restrict__ mr, const float* __restrict__ mi,
-                const float* __restrict__ twr,
-                const float* __restrict__ twi, int n_windows, Reader rd,
+                const float2* __restrict__ tw,
+                const int* __restrict__ bins, int n_windows, Reader rd,
                 float scale_db, int* __restrict__ idx_out,
                 float* __restrict__ pw_out, float* __restrict__ pav_out) {
-  using Shape = RxShape<N>;
-  constexpr int H = Shape::kHalf;
-  __shared__ float xr[Shape::kWindows][N];
-  __shared__ float xi[Shape::kWindows][N];
-  __shared__ float red_v[Shape::kWindows][Shape::kWarps];
-  __shared__ int red_k[Shape::kWindows][Shape::kWarps];
-  __shared__ float red_s[Shape::kWindows][Shape::kWarps];
-
-  const int wl = threadIdx.x / H;        // window within the block
-  const int lt = threadIdx.x % H;        // thread within the window
-  const int win = blockIdx.x * Shape::kWindows + wl;
+  using Plan = DensePlan<N>;
+  constexpr int T = Plan::kLanes;
+  constexpr int V = Plan::kV;
+  const int t = threadIdx.x % T;          // lane within the window
+  const int win = blockIdx.x * Plan::kWindows + threadIdx.x / T;
   const bool valid = win < n_windows;
-  float* wr = xr[wl];
-  float* wi = xi[wl];
 
-  // (a) + (b): load, normalise, rotate, multiply; store bit-reversed for
-  // the decimation-in-time FFT below.
+  // (a) + (b): load, normalise, rotate, multiply, in natural order.  Lanes
+  // past the last window compute on zeros: every lane takes part in the
+  // shuffles.
+  float2 x[V];
   if (valid) {
     const lora_rx::Window w = rd(sr, si, t_off, rate, scale, win, N);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = lt + h * H;
-      const int j = (int)(__brev((unsigned)i) >> (32 - Shape::kLog));
-      rd.sample(w, mr, mi, i, &wr[j], &wi[j]);
+    for (int q = 0; q < V; ++q) {
+      rd.sample(w, mr, mi, t + q * T, &x[q].x, &x[q].y);
     }
-  }
-  __syncthreads();
-
-  // (c) radix-2 decimation-in-time FFT: one butterfly per thread per stage,
-  // twiddle W^k = twr[k] + j*twi[k] = exp(-2j*pi*k/N).
+  } else {
 #pragma unroll
-  for (int len = 2; len <= N; len <<= 1) {
-    const int half = len >> 1;
-    const int pos = lt & (half - 1);
-    const int i0 = (lt / half) * len + pos;
-    const int i1 = i0 + half;
-    if (valid) {
-      const int k = pos * (N / len);
-      const float c = __ldg(twr + k);
-      const float sn = __ldg(twi + k);
-      const float br = wr[i1], bi = wi[i1];
-      const float tr = br * c - bi * sn;
-      const float ti = br * sn + bi * c;
-      const float ar = wr[i0], ai = wi[i0];
-      wr[i0] = ar + tr;
-      wi[i0] = ai + ti;
-      wr[i1] = ar - tr;
-      wi[i1] = ai - ti;
-    }
-    __syncthreads();
+    for (int q = 0; q < V; ++q) x[q] = make_float2(0.f, 0.f);
   }
 
-  // (d) |X|^2, first max and sum: two bins per thread, then the warp (or
-  // the window's segment of it), then the warps of the window in order.
+  // (c) pass 0 in registers, then the radix-2 passes across lanes.
+  lora_rx::dft_regs<V, 0>(x);
+  if constexpr (Plan::kPasses > 1) {
+#pragma unroll
+    for (int j = 1; j < V; ++j) {
+      x[j] = lora_rx::cmul(x[j], __ldg(tw + (brev(j, V) - 1) * T + t));
+    }
+    lane_pass<N, 1, (V - 1) * T>(x, tw, t);
+  }
+
+  // (d) |X|^2, first max (by natural bin) and sum: the lane's values, then
+  // the window's lanes.
   float best = 0.f, sum = 0.f;
-  int bk = lt;
-  if (valid) {
-    const float v0 = wr[lt] * wr[lt] + wi[lt] * wi[lt];
-    const float v1 = wr[lt + H] * wr[lt + H] + wi[lt + H] * wi[lt + H];
-    best = v0;
-    if (takes(v1, lt + H, v0, lt)) {
-      best = v1;
-      bk = lt + H;
+  int bk = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float p = x[v].x * x[v].x + x[v].y * x[v].y;
+    const int k = __ldg(bins + v * T + t);
+    if (v == 0 || takes(p, k, best, bk)) {
+      best = p;
+      bk = k;
     }
-    sum = v0 + v1;
+    sum += p;
   }
 #pragma unroll
-  for (int off = Shape::kSeg / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, off, Shape::kSeg);
-    const int ok = __shfl_down_sync(0xffffffffu, bk, off, Shape::kSeg);
-    const float os = __shfl_down_sync(0xffffffffu, sum, off, Shape::kSeg);
+  for (int off = T / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(0xffffffffu, best, off, T);
+    const int ok = __shfl_down_sync(0xffffffffu, bk, off, T);
+    const float os = __shfl_down_sync(0xffffffffu, sum, off, T);
     if (takes(ov, ok, best, bk)) {
       best = ov;
       bk = ok;
     }
     sum += os;
   }
-  if ((lt & (Shape::kSeg - 1)) == 0) {
-    red_v[wl][lt / Shape::kSeg] = best;
-    red_k[wl][lt / Shape::kSeg] = bk;
-    red_s[wl][lt / Shape::kSeg] = sum;
-  }
-  __syncthreads();
-  if (lt == 0 && valid) {
-    float bv = red_v[wl][0];
-    int kk = red_k[wl][0];
-    float tot = red_s[wl][0];
-#pragma unroll
-    for (int w = 1; w < Shape::kWarps; ++w) {
-      if (takes(red_v[wl][w], red_k[wl][w], bv, kk)) {
-        bv = red_v[wl][w];
-        kk = red_k[wl][w];
-      }
-      tot += red_s[wl][w];
-    }
-    lora_rx::store_detection(win, bv, kk, tot, scale_db, idx_out, pw_out,
+  if (t == 0 && valid) {
+    lora_rx::store_detection(win, best, bk, sum, scale_db, idx_out, pw_out,
                              pav_out);
   }
 }
@@ -172,19 +176,18 @@ rx_dense_kernel(const float* __restrict__ sr, const float* __restrict__ si,
 template <int N, class Reader>
 int launch_rx(const float* sr, const float* si, const int* t_off,
               const float* rate, const float* scale, const float* mr,
-              const float* mi, const float* twr, const float* twi, int B,
+              const float* mi, const float* tw, const int* bins, int B,
               const Reader& rd, float scale_db, int* idx, float* pw,
               float* pav, cudaStream_t stream) {
-  using Shape = RxShape<N>;
+  using Plan = DensePlan<N>;
   const long long windows = (long long)B * rd.rows();
   if (windows == 0) return (int)cudaSuccess;
   if (windows > INT_MAX) return (int)cudaErrorInvalidValue;
-  const long long blocks =
-      (windows + Shape::kWindows - 1) / Shape::kWindows;
-  rx_dense_kernel<N, Reader><<<(unsigned)blocks, Shape::kThreads, 0,
+  const long long blocks = (windows + Plan::kWindows - 1) / Plan::kWindows;
+  rx_dense_kernel<N, Reader><<<(unsigned)blocks, Plan::kThreads, 0,
                                stream>>>(
-      sr, si, t_off, rate, scale, mr, mi, twr, twi, (int)windows, rd,
-      scale_db, idx, pw, pav);
+      sr, si, t_off, rate, scale, mr, mi, (const float2*)tw, bins,
+      (int)windows, rd, scale_db, idx, pw, pav);
   return (int)cudaGetLastError();
 }
 
@@ -193,13 +196,13 @@ int launch_rx(const float* sr, const float* si, const int* t_off,
 template <class Reader>
 int dispatch(const float* sr, const float* si, const int* t_off,
              const float* rate, const float* scale, const float* mr,
-             const float* mi, const float* twr, const float* twi, int B,
+             const float* mi, const float* tw, const int* bins, int B,
              const Reader& rd, int n, float scale_db, int* idx, float* pw,
              float* pav, cudaStream_t stream) {
 #define LORA_RX_CASE(NN)                                                    \
   case NN:                                                                  \
-    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, twr,   \
-                                 twi, B, rd, scale_db, idx, pw, pav,        \
+    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, tw,    \
+                                 bins, B, rd, scale_db, idx, pw, pav,       \
                                  stream);
   switch (n) {
     LORA_RX_CASE(4)
@@ -219,20 +222,20 @@ int dispatch(const float* sr, const float* si, const int* t_off,
 }  // namespace
 
 // sr/si: float32 (B, S*n) streams; t_off int32 (B,), rate/scale float32
-// (B,); mr/mi float32 (n,) multiplier; twr/twi float32 (n/2,) FFT
-// twiddles; idx int32, pw/pav float32 (B, S) outputs.  Returns the
-// cudaError_t of the launch.
+// (B,); mr/mi float32 (n,) multiplier; tw float32 (K, 2) FFT twiddles and
+// bins int32 (n,) natural bins (ops/cuda_rx.py::_fft_plan); idx int32,
+// pw/pav float32 (B, S) outputs.  Returns the cudaError_t of the launch.
 extern "C" int lora_rx_dense(const void* sr, const void* si,
                              const void* t_off, const void* rate,
                              const void* scale, const void* mr,
-                             const void* mi, const void* twr,
-                             const void* twi, int B, int S, int n,
+                             const void* mi, const void* tw,
+                             const void* bins, int B, int S, int n,
                              float scale_db, void* idx, void* pw, void* pav,
                              void* stream) {
   if (B < 0 || S <= 0) return (int)cudaErrorInvalidValue;
   return dispatch((const float*)sr, (const float*)si, (const int*)t_off,
                   (const float*)rate, (const float*)scale, (const float*)mr,
-                  (const float*)mi, (const float*)twr, (const float*)twi, B,
+                  (const float*)mi, (const float*)tw, (const int*)bins, B,
                   lora_rx::DirectReader{S}, n, scale_db, (int*)idx,
                   (float*)pw, (float*)pav, (cudaStream_t)stream);
 }
@@ -242,17 +245,17 @@ extern "C" int lora_rx_dense(const void* sr, const void* si,
 namespace lora_rx {
 
 LORA_RX_LAUNCHER(launch_dense_osr, OsrReader) {
-  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, tw, bins, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
 
 LORA_RX_LAUNCHER(launch_dense_stream, StreamReader) {
-  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, tw, bins, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
 
 LORA_RX_LAUNCHER(launch_dense_row, RowReader) {
-  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, tw, bins, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
 

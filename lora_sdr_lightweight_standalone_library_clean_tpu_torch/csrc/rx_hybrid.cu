@@ -20,112 +20,180 @@
 // scale x rotation x multiplier product rounded as the plain PyTorch
 // version rounds it, an n-point DFT, and the first-max bin in natural
 // order (lowest index on ties) with its power and noise dB.  The TPU forms
-// the DFT as log2(n/128) DIF passes plus a 128-point DFT matmul and maps
-// bins back through a bit-reversed `nat` table, because it has no FFT;
-// none of that is carried over.  Here the DFT is the same radix-2
-// decimation-in-time FFT as rx_dense.cu, in float32 with float64-built
-// twiddles, so bins come out in natural order.
+// the DFT as log2(n/128) DIF passes plus a 128-point DFT matmul because it
+// has no FFT; none of that is carried over.
 //
-// How it differs from rx_dense.cu.  A window no longer fits one butterfly
-// per thread: n/2 = 2048 threads would exceed the 1024-thread block limit.
-// So one block of 512 threads holds one window and each thread takes
-// n/1024 butterflies per stage and n/512 samples on load and in the
-// reduction.  The two planes live in dynamic shared memory, 2 x n x 4 B =
-// 8/16/32 KB per block, under the 48 KB a launch may take without
-// cudaFuncSetAttribute; 8192/16384 (64/128 KB) set that attribute before
-// their launch, and at 16384 one block fits an SM (512 threads).
+// The FFT (rx_fft.cuh).  One block of n/16 threads holds one window, and
+// each thread holds 16 complex values in registers.  Thread t loads
+// samples t + q*n/16, q < 16 (coalesced), and the transform runs as
+// radix-16 passes plus one radix-2/4/8 pass where log2(n) is not a multiple
+// of 4: 16*16*4 at 1024, 16*16*8 at 2048, 16^3 at 4096, 16^3*2 at 8192,
+// 16^3*4 at 16384.  Each pass is a 16-point DFT in registers (a radix-r
+// pass does 16/r r-point DFTs), its inter-pass twiddles from the plan's
+// table through __ldg, then one exchange through shared memory and one
+// __syncthreads(): 2 exchanges at 1024 ... 4096, 3 at 8192 and 16384, in
+// place of log2(n) barrier-separated radix-2 stages.  The last pass does
+// not store: its values go straight into the first-max reduction, each
+// with its natural bin from the plan's `bins` table.
 //
-// What bounds it on the H100.  The floor is the one read of the stream,
-// 8 B per sample (554 MB for 256 sf12 packets of 66 symbols, about
-// 0.17 ms at 3.35 TB/s); each window writes 12 B.  This simple design sits
-// instead on its log2(n) = 10-14 barrier-separated shared-memory stages
-// and the accurate sincosf per sample; making it fast is later work.
+// Why the exchanges are free of bank conflicts.  The plane holds float2
+// (re, im) words, word a at a + a/16 (one word of padding per 16), so in
+// bank pair (a + a/16) mod 16.  A 64-bit shared access is served per
+// half-warp, 16 lanes over the 16 bank pairs.  In every pass the lanes of
+// a half-warp hold 16 consecutive butterflies b, and for each q butterfly
+// b touches c*L_p + q*L_{p+1} + m (c = b / L_{p+1}, m = b mod L_{p+1}).
+// Where L_{p+1} >= 16 the 16 lanes touch 16 consecutive words of one
+// 16-aligned run: 16 pairs.  Where L_{p+1} < 16 they form 16 / L_{p+1}
+// runs of L_{p+1} consecutive words, L_p words apart; unpadded these
+// would share pairs (16-way at 4096's last pass, where L_p = 16), and the
+// a/16 term moves each run onto pairs of its own.  Stores use the same
+// addresses as the loads of their pass.  tests/test_torch_fft_plan.py
+// enumerates every load and store of every plan and finds 16 distinct
+// pairs in each half-warp (and up to 16-way conflicts without the pad).
+//
+// What bounds it on the H100.  Per window the stream read (8 B a sample)
+// and 5 n log2 n float32 operations; shared memory carries 2-3 exchanges of
+// 8 B a sample each way, and the twiddle and bin tables come from L1.  At
+// 16384 one block of 1024 threads and 136 KB of shared memory fills an SM.
+// As built, the instruction issue bounds it: about 1,930 instructions a
+// thread at 4096 (the StreamReader instance), a quarter of them the DFTs'
+// adds and the rest twiddle products, sample and table addressing and the
+// first-max compares; instructions x warps / (4 issue slots x 132 SMs)
+// comes to ~90 % of the measured time (PERF.md).
 #include <cuda_runtime.h>
 #include <climits>
 
 #include "rx_common.cuh"
+#include "rx_fft.cuh"
 
 namespace {
 
+using lora_rx::brev;
+using lora_rx::ilog2;
 using lora_rx::takes;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+template <int N>
+struct HybridPlan {
+  static constexpr int kV = 16;                       // values per thread
+  static constexpr int kThreads = N / kV;             // one window
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kFull = ilog2(N) / 4;          // radix-16 passes
+  static constexpr int kRem = N >> (4 * kFull);       // last radix, or 1
+  static constexpr int kPasses = kFull + (kRem > 1 ? 1 : 0);
+  static constexpr int kWords = N + N / 16;           // padded float2 words
+  // Blocks an SM must hold: 1024 threads' worth caps ptxas at 64 registers
+  // a thread, which fits without spilling and, with the padded plane
+  // (8.5 KB at 1024, 35 KB at 4096), keeps 4-16 blocks resident: 29 % less
+  // time at 4096 than with a bound of one block, under which ptxas takes
+  // 120 registers (H100, PERF.md).  At 8192 64 registers spill, so one
+  // block, with up to 128.
+  static constexpr int kMinBlocks = N == 8192 ? 1 : 1024 / kThreads;
+  __host__ __device__ static constexpr int radix(int p) {
+    return p < kFull ? 16 : kRem;
+  }
+  // L_p: the points of each sub-transform pass p works on
+  __host__ __device__ static constexpr int span(int p) {
+    return p == 0 ? N : span(p - 1) / radix(p - 1);
+  }
+  // offset of pass p's twiddles in the table, in (re, im) pairs
+  __host__ __device__ static constexpr int table(int p) {
+    return p == 0 ? 0 : table(p - 1) + (radix(p - 1) - 1) * span(p);
+  }
+};
+
+__device__ __forceinline__ int padded(int a) { return a + (a >> 4); }
+
+// Butterfly b = t + G * threads of pass P, on registers x[G*R ... G*R+R-1]
+// of thread t, then the thread's next butterfly of the pass.
+template <int N, int P, int G = 0>
+__device__ __forceinline__ void hybrid_fly(float2* x, float2* sh,
+                                           const float2* __restrict__ tw,
+                                           int t) {
+  using Plan = HybridPlan<N>;
+  constexpr int R = Plan::radix(P);
+  constexpr int L = Plan::span(P);
+  constexpr int Lq = L / R;
+  constexpr int O = G * R;
+  const int b = t + G * Plan::kThreads;
+  const int m = b % Lq;
+  const int base = (b / Lq) * L + m;
+  if constexpr (P > 0) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) x[O + q] = sh[padded(base + q * Lq)];
+  }
+  lora_rx::dft_regs<R, O>(x);
+  if constexpr (P + 1 < Plan::kPasses) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int s = brev(j, R);
+      if (s > 0) {
+        x[O + j] = lora_rx::cmul(
+            x[O + j], __ldg(tw + Plan::table(P) + (s - 1) * Lq + m));
+      }
+      sh[padded(base + s * Lq)] = x[O + j];
+    }
+  }
+  if constexpr (G + 1 < Plan::kV / R) hybrid_fly<N, P, G + 1>(x, sh, tw, t);
+}
+
+// Pass P and the passes after it; one barrier between two passes.
+template <int N, int P>
+__device__ __forceinline__ void hybrid_pass(float2* x, float2* sh,
+                                            const float2* __restrict__ tw,
+                                            int t) {
+  hybrid_fly<N, P>(x, sh, tw, t);
+  if constexpr (P + 1 < HybridPlan<N>::kPasses) {
+    __syncthreads();
+    hybrid_pass<N, P + 1>(x, sh, tw, t);
+  }
+}
 
 template <int N, class Reader>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(HybridPlan<N>::kThreads,
+                                  HybridPlan<N>::kMinBlocks)
 rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
                  const int* __restrict__ t_off,
                  const float* __restrict__ rate,
                  const float* __restrict__ scale,
                  const float* __restrict__ mr, const float* __restrict__ mi,
-                 const float* __restrict__ twr,
-                 const float* __restrict__ twi, Reader rd, float scale_db,
+                 const float2* __restrict__ tw,
+                 const int* __restrict__ bins, Reader rd, float scale_db,
                  int* __restrict__ idx_out, float* __restrict__ pw_out,
                  float* __restrict__ pav_out) {
-  constexpr int kSamples = N / kThreads;        // samples per thread
-  constexpr int kFlies = N / 2 / kThreads;      // butterflies per stage
-  constexpr int kLog = lora_rx::ilog2(N);
-  extern __shared__ float planes[];
-  float* wr = planes;
-  float* wi = planes + N;
-  __shared__ float red_v[kWarps];
-  __shared__ int red_k[kWarps];
-  __shared__ float red_s[kWarps];
+  using Plan = HybridPlan<N>;
+  constexpr int T = Plan::kThreads;
+  extern __shared__ float2 planes[];
+  __shared__ float red_v[Plan::kWarps];
+  __shared__ int red_k[Plan::kWarps];
+  __shared__ float red_s[Plan::kWarps];
 
   const int win = blockIdx.x;
-  const int lt = threadIdx.x;
+  const int t = threadIdx.x;
 
-  // (a) + (b): load, normalise, rotate, multiply; store bit-reversed for
-  // the decimation-in-time FFT below.
+  // (a) + (b): load, normalise, rotate, multiply, in natural order.
+  float2 x[Plan::kV];
   const lora_rx::Window w = rd(sr, si, t_off, rate, scale, win, N);
 #pragma unroll
-  for (int h = 0; h < kSamples; ++h) {
-    const int i = lt + h * kThreads;
-    const int j = (int)(__brev((unsigned)i) >> (32 - kLog));
-    rd.sample(w, mr, mi, i, &wr[j], &wi[j]);
-  }
-  __syncthreads();
-
-  // (c) radix-2 decimation-in-time FFT: kFlies butterflies per thread per
-  // stage, twiddle W^k = twr[k] + j*twi[k] = exp(-2j*pi*k/N).
-#pragma unroll
-  for (int len = 2; len <= N; len <<= 1) {
-    const int half = len >> 1;
-#pragma unroll
-    for (int f = 0; f < kFlies; ++f) {
-      const int fly = lt + f * kThreads;
-      const int pos = fly & (half - 1);
-      const int i0 = (fly / half) * len + pos;
-      const int i1 = i0 + half;
-      const int k = pos * (N / len);
-      const float c = __ldg(twr + k);
-      const float sn = __ldg(twi + k);
-      const float br = wr[i1], bi = wi[i1];
-      const float tr = br * c - bi * sn;
-      const float ti = br * sn + bi * c;
-      const float ar = wr[i0], ai = wi[i0];
-      wr[i0] = ar + tr;
-      wi[i0] = ai + ti;
-      wr[i1] = ar - tr;
-      wi[i1] = ai - ti;
-    }
-    __syncthreads();
+  for (int q = 0; q < Plan::kV; ++q) {
+    rd.sample(w, mr, mi, t + q * T, &x[q].x, &x[q].y);
   }
 
-  // (d) |X|^2, first max and sum: kSamples bins per thread in increasing
-  // order, then the warp, then the warps in order.
+  // (c) the FFT; output in digit-reversed order, in registers.
+  hybrid_pass<N, 0>(x, planes, tw, t);
+
+  // (d) |X|^2, first max (by natural bin) and sum: the thread's 16 bins,
+  // then the warp, then the warps in order.
   float best = 0.f, sum = 0.f;
-  int bk = lt;
+  int bk = 0;
 #pragma unroll
-  for (int h = 0; h < kSamples; ++h) {
-    const int k = lt + h * kThreads;
-    const float v = wr[k] * wr[k] + wi[k] * wi[k];
-    if (h == 0 || takes(v, k, best, bk)) {
-      best = v;
+  for (int v = 0; v < Plan::kV; ++v) {
+    const float p = x[v].x * x[v].x + x[v].y * x[v].y;
+    const int k = __ldg(bins + v * T + t);
+    if (v == 0 || takes(p, k, best, bk)) {
+      best = p;
       bk = k;
     }
-    sum += v;
+    sum += p;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -138,18 +206,18 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
     }
     sum += os;
   }
-  if ((lt & 31) == 0) {
-    red_v[lt / 32] = best;
-    red_k[lt / 32] = bk;
-    red_s[lt / 32] = sum;
+  if ((t & 31) == 0) {
+    red_v[t / 32] = best;
+    red_k[t / 32] = bk;
+    red_s[t / 32] = sum;
   }
   __syncthreads();
-  if (lt == 0) {
+  if (t == 0) {
     float bv = red_v[0];
     int kk = red_k[0];
     float tot = red_s[0];
 #pragma unroll
-    for (int q = 1; q < kWarps; ++q) {
+    for (int q = 1; q < Plan::kWarps; ++q) {
       if (takes(red_v[q], red_k[q], bv, kk)) {
         bv = red_v[q];
         kk = red_k[q];
@@ -164,13 +232,14 @@ rx_hybrid_kernel(const float* __restrict__ sr, const float* __restrict__ si,
 template <int N, class Reader>
 int launch_rx(const float* sr, const float* si, const int* t_off,
               const float* rate, const float* scale, const float* mr,
-              const float* mi, const float* twr, const float* twi, int B,
+              const float* mi, const float* tw, const int* bins, int B,
               const Reader& rd, float scale_db, int* idx, float* pw,
               float* pav, cudaStream_t stream) {
+  using Plan = HybridPlan<N>;
   const long long windows = (long long)B * rd.rows();
   if (windows == 0) return (int)cudaSuccess;
   if (windows > INT_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * N * sizeof(float);
+  const size_t smem = Plan::kWords * sizeof(float2);
   if (smem > 48 * 1024) {
     // above 48 KB a launch is refused unless the kernel opted in first
     const cudaError_t e = cudaFuncSetAttribute(
@@ -178,9 +247,10 @@ int launch_rx(const float* sr, const float* si, const int* t_off,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rx_hybrid_kernel<N, Reader><<<(unsigned)windows, kThreads, smem, stream>>>(
-      sr, si, t_off, rate, scale, mr, mi, twr, twi, rd, scale_db, idx, pw,
-      pav);
+  rx_hybrid_kernel<N, Reader><<<(unsigned)windows, Plan::kThreads, smem,
+                                stream>>>(
+      sr, si, t_off, rate, scale, mr, mi, (const float2*)tw, bins, rd,
+      scale_db, idx, pw, pav);
   return (int)cudaGetLastError();
 }
 
@@ -189,13 +259,13 @@ int launch_rx(const float* sr, const float* si, const int* t_off,
 template <class Reader>
 int dispatch(const float* sr, const float* si, const int* t_off,
              const float* rate, const float* scale, const float* mr,
-             const float* mi, const float* twr, const float* twi, int B,
+             const float* mi, const float* tw, const int* bins, int B,
              const Reader& rd, int n, float scale_db, int* idx, float* pw,
              float* pav, cudaStream_t stream) {
 #define LORA_RX_CASE(NN)                                                    \
   case NN:                                                                  \
-    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, twr,   \
-                                 twi, B, rd, scale_db, idx, pw, pav,        \
+    return launch_rx<NN, Reader>(sr, si, t_off, rate, scale, mr, mi, tw,    \
+                                 bins, B, rd, scale_db, idx, pw, pav,       \
                                  stream);
   switch (n) {
     LORA_RX_CASE(1024)
@@ -212,20 +282,20 @@ int dispatch(const float* sr, const float* si, const int* t_off,
 }  // namespace
 
 // sr/si: float32 (B, S*n) streams; t_off int32 (B,), rate/scale float32
-// (B,); mr/mi float32 (n,) multiplier; twr/twi float32 (n/2,) FFT
-// twiddles; idx int32, pw/pav float32 (B, S) outputs.  Returns the
-// cudaError_t of the launch.
+// (B,); mr/mi float32 (n,) multiplier; tw float32 (K, 2) FFT twiddles and
+// bins int32 (n,) natural bins (ops/cuda_rx.py::_fft_plan); idx int32,
+// pw/pav float32 (B, S) outputs.  Returns the cudaError_t of the launch.
 extern "C" int lora_rx_hybrid(const void* sr, const void* si,
                               const void* t_off, const void* rate,
                               const void* scale, const void* mr,
-                              const void* mi, const void* twr,
-                              const void* twi, int B, int S, int n,
+                              const void* mi, const void* tw,
+                              const void* bins, int B, int S, int n,
                               float scale_db, void* idx, void* pw, void* pav,
                               void* stream) {
   if (B < 0 || S <= 0) return (int)cudaErrorInvalidValue;
   return dispatch((const float*)sr, (const float*)si, (const int*)t_off,
                   (const float*)rate, (const float*)scale, (const float*)mr,
-                  (const float*)mi, (const float*)twr, (const float*)twi, B,
+                  (const float*)mi, (const float*)tw, (const int*)bins, B,
                   lora_rx::DirectReader{S}, n, scale_db, (int*)idx,
                   (float*)pw, (float*)pav, (cudaStream_t)stream);
 }
@@ -235,12 +305,12 @@ extern "C" int lora_rx_hybrid(const void* sr, const void* si,
 namespace lora_rx {
 
 LORA_RX_LAUNCHER(launch_hybrid_osr, OsrReader) {
-  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, tw, bins, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
 
 LORA_RX_LAUNCHER(launch_hybrid_stream, StreamReader) {
-  return dispatch(sr, si, t_off, rate, scale, mr, mi, twr, twi, B, rd, n,
+  return dispatch(sr, si, t_off, rate, scale, mr, mi, tw, bins, B, rd, n,
                   scale_db, idx, pw, pav, stream);
 }
 

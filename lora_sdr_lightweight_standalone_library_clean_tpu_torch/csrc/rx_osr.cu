@@ -32,14 +32,15 @@
 #include "rx_common.cuh"
 
 // sr/si: float32 (B, S*n*osr) streams; t_off int32 (B,), |t_off| <= n*osr;
-// rate/scale float32 (B,); mr/mi float32 (n,) multiplier; twr/twi float32
-// (n/2,) FFT twiddles; h0/h1: stream rows that are read but not detected;
-// idx int32, pw/pav float32 (B, S - h0 - h1) outputs.  Returns the
-// cudaError_t of the launch.
+// rate/scale float32 (B,); mr/mi float32 (n,) multiplier; tw float32 (K, 2)
+// FFT twiddles and bins int32 (n,) natural bins (ops/cuda_rx.py::
+// _fft_plan); h0/h1: stream rows that are read but not detected; idx
+// int32, pw/pav float32 (B, S - h0 - h1) outputs.  Returns the cudaError_t
+// of the launch.
 extern "C" int lora_rx_osr(const void* sr, const void* si, const void* t_off,
                            const void* rate, const void* scale,
-                           const void* mr, const void* mi, const void* twr,
-                           const void* twi, int B, int S, int n, int osr,
+                           const void* mr, const void* mi, const void* tw,
+                           const void* bins, int B, int S, int n, int osr,
                            int h0, int h1, float scale_db, void* idx,
                            void* pw, void* pav, void* stream) {
   const int nd = S - h0 - h1;
@@ -51,7 +52,7 @@ extern "C" int lora_rx_osr(const void* sr, const void* si, const void* t_off,
                          : lora_rx::launch_hybrid_osr;
   return launch((const float*)sr, (const float*)si, (const int*)t_off,
                 (const float*)rate, (const float*)scale, (const float*)mr,
-                (const float*)mi, (const float*)twr, (const float*)twi, B, rd,
+                (const float*)mi, (const float*)tw, (const int*)bins, B, rd,
                 n, scale_db, (int*)idx, (float*)pw, (float*)pav,
                 (cudaStream_t)stream);
 }

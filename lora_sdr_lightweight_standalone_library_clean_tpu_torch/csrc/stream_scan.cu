@@ -14,7 +14,7 @@
 //   (b) z[i] = x[i] * dc[i], dc the scan down-chirp (the full-rate base
 //       down-chirp at the phase-0 decimation points), each product rounded
 //       as the plain PyTorch version rounds it; no rotation, so no sincos;
-//   (c) the n-point radix-2 FFT in shared memory and |X|^2;
+//   (c) the n-point FFT of rx_fft.cuh and |X|^2;
 //   (d) the first-max bin, 20log10(sqrt(max)) - 20log10(n) and
 //       20log10(sqrt(sum - max)) - 20log10(n), in window order.
 // The TPU kernel builds its step/stride window phases by rolling lanes of a
@@ -28,19 +28,21 @@
 // overlap.  The FFT work grows with the overlap (5 n log2 n float32
 // operations per window), so at the default strides the float32 operations
 // (67 TFLOP/s), not the bytes, give the larger bound.  The design keeps
-// windows and spectra out of device memory, as the RX kernels do; making
-// the shared-memory FFT faster is later work, shared with them.
+// windows and spectra out of device memory, as the RX kernels do, and runs
+// their FFT: registers and shuffles to n = 512, registers and two
+// conflict-free shared-memory exchanges at 1024 ... 4096.
 #include <cuda_runtime.h>
 
 #include "rx_common.cuh"
 
 // sr/si: float32 (B, len) streams; mr/mi float32 (n,) scan down-chirp;
-// twr/twi float32 (n/2,) FFT twiddles; W windows per stream, starting
+// tw float32 (K, 2) FFT twiddles and bins int32 (n,) natural
+// bins (ops/cuda_rx.py::_fft_plan); W windows per stream, starting
 // every `stride` samples, each reading n samples every `osr`; idx int32,
 // pw/pav float32 (B, W) outputs.  Returns the cudaError_t of the launch.
 extern "C" int lora_stream_scan(const void* sr, const void* si,
                                 const void* mr, const void* mi,
-                                const void* twr, const void* twi, int B,
+                                const void* tw, const void* bins, int B,
                                 long long len, int W, int stride, int n,
                                 int osr, float scale_db, void* idx, void* pw,
                                 void* pav, void* stream) {
@@ -52,6 +54,6 @@ extern "C" int lora_stream_scan(const void* sr, const void* si,
                          : lora_rx::launch_hybrid_stream;
   return launch((const float*)sr, (const float*)si, nullptr, nullptr,
                 nullptr, (const float*)mr, (const float*)mi,
-                (const float*)twr, (const float*)twi, B, rd, n, scale_db,
+                (const float*)tw, (const int*)bins, B, rd, n, scale_db,
                 (int*)idx, (float*)pw, (float*)pav, (cudaStream_t)stream);
 }

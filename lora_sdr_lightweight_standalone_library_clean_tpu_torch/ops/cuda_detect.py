@@ -23,8 +23,9 @@ take the fused RX kernel, ``backend="auto"``.  Each launch adds one to
 Kernel note.  Replaces ``ops/pallas_detect.py:_detect_kernel``, which
 multiplies tiles of rows by dense (n, n) cos/sin DFT matrices on the TPU's
 MXU.  Here each row is one RX window: the rotation with the accurate
-sincosf, then the shared-memory radix-2 FFT, the first-max rule and the dB
-epilogue of ``rx_common.cuh``.  The floor is the one read of the rows,
+sincosf, then ``rx_dense``'s FFT in registers and shuffles
+(``csrc/rx_fft.cuh``), the first-max rule and the dB epilogue of
+``rx_common.cuh``.  The floor is the one read of the rows,
 8 bytes a sample; rotations and spectra stay out of device memory.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from ..utils import cuda_build
 from ..utils.errors import InvalidArgumentError
 from ..utils.tensors import device_table
-from .cuda_rx import _checked, _fft_twiddles
+from .cuda_rx import _checked, _fft_tables
 from .detect import detect_ri
 
 __all__ = ["fused_rotate_detect", "fused_rotate_detect_ref",
@@ -99,13 +100,13 @@ def fused_rotate_detect(zr, zi, rate, start):
     pav = torch.empty((b, s), dtype=torch.float32, device=dev)
     if b * s == 0:
         return idx, pw, pav
-    twr, twi = device_table(_fft_twiddles, n, device=dev)
+    tw, bins = device_table(_fft_tables, n, device=dev)
     scale_db = float(np.float32(20.0 * np.log10(n)))
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.lora_rotate_detect(
             zr.data_ptr(), zi.data_ptr(), rate.data_ptr(), start.data_ptr(),
-            twr.data_ptr(), twi.data_ptr(), b, s, n, scale_db,
+            tw.data_ptr(), bins.data_ptr(), b, s, n, scale_db,
             idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -44,17 +44,23 @@ Kernel note.  Replaces ``ops/pallas_rx.py:_rx_kernel`` (direct window,
 padded/slab osr > 1 window and halo; dense and hybrid DFT).  On the H100
 the floor is the one read of the stream, 8 bytes per sample (a strided
 osr > 1 read still moves every sector); the compute per detected sample is
-one sincos, the rotation multiplies and log2(n) shared-memory FFT stages.
-The TPU multiplies by a dense DFT matrix, or runs DIF passes into a
-128-point DFT matmul, because it has no FFT; the kernels run a radix-2 FFT
-in shared memory, in float32 with twiddles built in float64, and keep
-windows and spectra out of device memory, 12 bytes written per window.
-``rx_dense`` gives each window n/2 threads (as many windows per block as
-make 128 threads when n < 256); ``rx_hybrid`` gives each window one
-512-thread block, n/1024 butterflies per thread and stage, with 2*n*4
-bytes of dynamic shared memory (128 KB at 16384).
+one sincos, the rotation multiplies and the FFT.  The TPU multiplies by a
+dense DFT matrix, or runs DIF passes into a 128-point DFT matmul, because
+it has no FFT; the kernels run an in-place mixed-radix DIF FFT in float32
+(``csrc/rx_fft.cuh``) whose radices, float64-built twiddles and
+natural-bin map come from ``_fft_plan`` here, and keep windows and spectra
+out of device memory, 12 bytes written per window.  Each thread holds 16
+values in registers.  ``rx_dense`` gives a window n/16 lanes of one warp
+(a lane per window to n = 16) that exchange by shuffles, with no shared
+memory and no block barrier; ``rx_hybrid`` gives a window one block of
+n/16 threads, radix-16 passes in registers and 2-3 exchanges through a
+padded, bank-conflict-free float2 plane in shared memory (136 KB at
+16384).  Spectra stay in digit-reversed order: the first-max reduction
+reads each value's natural bin from the plan.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -101,6 +107,105 @@ def _fft_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
     math rounded to float32 (up to 8192 entries at n = 16384)."""
     ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+# W_16^k = exp(-2j*pi*k/16), k < 8, as (re, im): the compile-time constants
+# of the kernels' in-register DFTs (csrc/rx_fft.cuh: w16_re, w16_im), float64
+# math rounded to float32, with W_16^0 = 1 and W_16^4 = -j exact.
+_W16 = np.stack([np.cos(2.0 * np.pi * np.arange(8) / 16),
+                 -np.sin(2.0 * np.pi * np.arange(8) / 16)], axis=1)
+_W16 = np.where(np.abs(_W16) < 1e-12, 0.0, _W16).astype(np.float32)
+
+RX_VALUES = 16            # complex values per thread in the RX kernels' FFT
+
+
+class FftPlan(NamedTuple):
+    """The RX kernels' FFT for one size n (csrc/rx_fft.cuh).
+
+    radices: the passes' radices, first to last.
+    threads: threads (lanes) per window; each holds n / threads values.
+    warp: True for rx_dense (n <= 512: the window's lanes exchange by
+      shuffles, data stays in place), False for rx_hybrid (one block per
+      window; passes exchange through shared memory).
+    tw: float32 (K, 2) twiddles: for each pass p but the last,
+      W_{L_p}^{m*s} at row table(p) + (s-1)*L_{p+1} + m, s = 1 ... r_p-1,
+      m < L_{p+1} (L_p = n / (r_0 ... r_{p-1})).
+    bins: int32 (n,) the natural bin of the value that thread t of a
+      window holds in register v at the end, at bins[v * threads + t].
+    """
+    radices: tuple
+    threads: int
+    warp: bool
+    tw: np.ndarray
+    bins: np.ndarray
+
+
+def _fft_radices(n: int) -> tuple:
+    """rx_dense (n <= 512): one in-register pass of min(n, 16) points, then
+    radix-2 passes across the window's n / 16 lanes.  rx_hybrid: radix-16
+    passes, then one radix-2/4/8 pass where log2(n) is not a multiple of
+    4."""
+    if n <= RX_DENSE_MAX_N:
+        v = min(n, RX_VALUES)
+        return (v,) + (2,) * int(np.log2(n // v))
+    full = int(np.log2(n)) // 4
+    rem = n >> (4 * full)
+    return (RX_VALUES,) * full + ((rem,) if rem > 1 else ())
+
+
+def _brev(j: int, r: int) -> int:
+    """j with its log2(r) bits reversed."""
+    return int(format(j, f"0{int(np.log2(r))}b")[::-1], 2) if r > 1 else 0
+
+
+def _natural_bin(a: int, radices) -> int:
+    """The natural bin of address a at the end of the in-place DIF: a has
+    digit s_p at place L_{p+1}, the bin has it at place r_0 ... r_{p-1}."""
+    n = int(np.prod(radices))
+    span, place, k = n, 1, 0
+    for r in radices:
+        span //= r
+        k += (a // span % r) * place
+        place *= r
+    return k
+
+
+def _fft_plan(n: int) -> FftPlan:
+    """The pass plan, twiddle table and bin map of the n-point RX FFT."""
+    radices = _fft_radices(n)
+    warp = n <= RX_DENSE_MAX_N
+    values = min(n, RX_VALUES)
+    threads = n // values
+    cos, sin = _fft_twiddles(n)
+    # W_n^k for k < n from the n/2-entry table: W_n^(k + n/2) = -W_n^k
+    full = np.concatenate([np.stack([cos, sin], 1),
+                           -np.stack([cos, sin], 1)]).astype(np.float32)
+    rows, span = [], n
+    for r in radices[:-1]:
+        lq = span // r
+        s = np.arange(1, r)[:, None]
+        m = np.arange(lq)[None, :]
+        rows.append(full[(m * s * (n // span)).reshape(-1)])
+        span = lq
+    tw = (np.concatenate(rows) if rows
+          else np.zeros((0, 2), np.float32))
+    bins = np.empty(n, np.int32)
+    last = radices[-1]
+    for v in range(values):
+        for t in range(threads):
+            if warp:         # register v holds output brev(v) of pass 0
+                a = _brev(v, values) * threads + t
+            else:            # butterfly t + g*threads of the last pass
+                g, j = divmod(v, last)
+                a = (t + g * threads) * last + _brev(j, last)
+            bins[v * threads + t] = _natural_bin(a, radices)
+    return FftPlan(radices, threads, warp, tw, bins)
+
+
+def _fft_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(tw, bins) of ``_fft_plan(n)``, the tables the kernels read."""
+    plan = _fft_plan(n)
+    return plan.tw, plan.bins
 
 
 def rx_window_detect_ref(stream_r, stream_i, t_off, rate, scale, mult_r,
@@ -207,12 +312,12 @@ def rx_window_detect(stream_r, stream_i, t_off, rate, scale, mult_r, mult_i,
     pav = torch.empty(lead + (nd,), dtype=torch.float32, device=dev)
     if bsz == 0:
         return idx, pw, pav
-    twr, twi = device_table(_fft_twiddles, ndft, device=dev)
+    tw, bins = device_table(_fft_tables, ndft, device=dev)
     scale_db = float(np.float32(20.0 * np.log10(ndft)))
     lib = cuda_build.load()
     head = (sr.data_ptr(), si.data_ptr(), t.data_ptr(), r.data_ptr(),
-            sc.data_ptr(), mr.data_ptr(), mi.data_ptr(), twr.data_ptr(),
-            twi.data_ptr())
+            sc.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw.data_ptr(),
+            bins.data_ptr())
     tail = (scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if osr_k > 1 or h0 or h1:

@@ -34,8 +34,9 @@ stacks them into MXU tiles and multiplies by a dense (or DIF-factored) DFT
 matrix, after decimating the stream when osr > 1.  Here every window is
 one RX window (``rx_common.cuh``) whose threads read their samples straight
 from device memory with stride osr, multiply by the down-chirp (no
-rotation, no sincos) and run the shared-memory FFT; at stride step/4 each
-sample lies in four windows, and L2 carries that overlap.  Sample offsets
+rotation, no sincos) and run the RX kernels' FFT (``csrc/rx_fft.cuh``,
+``cuda_rx._fft_plan``); at stride step/4 each sample lies in four windows,
+and L2 carries that overlap.  Sample offsets
 are 64-bit, so a stream may pass 2^31 samples.
 """
 from __future__ import annotations
@@ -47,7 +48,7 @@ from ..utils import cuda_build
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
 from ..utils.tensors import device_table
-from .cuda_rx import _checked, _fft_twiddles
+from .cuda_rx import _checked, _fft_tables
 from .detect import detect_ri
 
 __all__ = ["stream_window_detect", "stream_window_detect_ref",
@@ -125,13 +126,13 @@ def stream_window_detect(ext_r, ext_i, params: LoraParams, stride: int,
     pav = torch.empty(lead + (windows,), dtype=torch.float32, device=dev)
     if bsz == 0 or windows <= 0:
         return idx, pw, pav
-    twr, twi = device_table(_fft_twiddles, n, device=dev)
+    tw, bins = device_table(_fft_tables, n, device=dev)
     scale_db = float(np.float32(20.0 * np.log10(n)))
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         err = lib.lora_stream_scan(
             sr.data_ptr(), si.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            twr.data_ptr(), twi.data_ptr(), bsz, length, windows, stride, n,
+            tw.data_ptr(), bins.data_ptr(), bsz, length, windows, stride, n,
             osr, scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -44,7 +44,7 @@ _c_void_p = ctypes.c_void_p
 
 # C signatures of the kernels' launch functions (each returns the
 # cudaError_t of cudaGetLastError() after its launch).
-# sr, si, t_off, rate, scale, mr, mi, twr, twi, b, s, n, scale_db,
+# sr, si, t_off, rate, scale, mr, mi, tw, bins, b, s, n, scale_db,
 # idx, pw, pav, stream
 _RX_SIGNATURE = [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                  _c_void_p, _c_void_p, _c_void_p, _c_void_p,
@@ -65,15 +65,15 @@ _SIGNATURES = {
     "lora_tx_osr": [_c_void_p] + [_c_int] * 7 + [_c_void_p] * 11,
     "lora_rx_dense": _RX_SIGNATURE,
     "lora_rx_hybrid": _RX_SIGNATURE,
-    # sr, si, t_off, rate, scale, mr, mi, twr, twi, b, s, n, osr, h0, h1,
+    # sr, si, t_off, rate, scale, mr, mi, tw, bins, b, s, n, osr, h0, h1,
     # scale_db, idx, pw, pav, stream
     "lora_rx_osr": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float]
                    + [_c_void_p] * 4,
-    # sr, si, mr, mi, twr, twi, b, len (64-bit), w, stride, n, osr,
+    # sr, si, mr, mi, tw, bins, b, len (64-bit), w, stride, n, osr,
     # scale_db, idx, pw, pav, stream
     "lora_stream_scan": [_c_void_p] * 6 + [_c_int, ctypes.c_longlong]
                         + [_c_int] * 4 + [_c_float] + [_c_void_p] * 4,
-    # zr, zi, rate, start, twr, twi, b, s, n, scale_db, idx, pw, pav, stream
+    # zr, zi, rate, start, tw, bins, b, s, n, scale_db, idx, pw, pav, stream
     "lora_rotate_detect": [_c_void_p] * 6 + [_c_int] * 3 + [_c_float]
                           + [_c_void_p] * 4,
 }

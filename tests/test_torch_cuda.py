@@ -102,6 +102,96 @@ def test_rx_kernel_matches_plain_on_card(cuda_device, sf):
     assert float((ga - wa).abs().max()) <= 0.05
 
 
+EDGE_TONES = 5     # rows 0-4 of _edge_windows; then impulse, zeros, NaN
+
+
+def _edge_windows(n):
+    """Eight windows of n samples: pure tones at bins 0, 1, n/2 - 1, n/2 and
+    n - 1, an impulse at sample 0 (an exactly flat spectrum, an n-way tie),
+    all zeros, and a tone at bin 3 with one NaN sample; as one float32
+    (1, 8n) stream per plane, and the bins the tones must give."""
+    i = np.arange(n)
+    tones = [0, 1, n // 2 - 1, n // 2, n - 1]
+    rows = [np.exp(2j * np.pi * k * i / n) for k in tones]
+    rows += [(i == 0).astype(complex), np.zeros(n, complex)]
+    nan = np.exp(2j * np.pi * 3 * i / n)
+    nan[n // 3] = np.nan
+    rows.append(nan)
+    z = np.stack(rows).reshape(1, -1)
+    return z.real.astype(np.float32), z.imag.astype(np.float32), tones
+
+
+def _assert_edge_detections(got, want, tones, rows):
+    """Bins equal the plain version's on every window, and the tones, the
+    impulse (lowest bin of the tie), the zeros and the NaN window (the
+    first NaN bin, bin 0: every bin is NaN) give the bins they must.
+    Power dB within 0.05 where finite, and -inf / NaN where the plain
+    version has them; noise dB on the impulse (flat, well conditioned) and
+    the zeros (-inf).  A pure tone's noise dB is float32 rounding of the
+    sum and is not compared."""
+    gi, gp, ga = (a.reshape(-1)[:rows].cpu() for a in got)
+    wi, wp, wa = (a.reshape(-1)[:rows].cpu() for a in want)
+    assert torch.equal(gi, wi)
+    assert gi.tolist() == tones + [0, 0, 0]
+    fin = torch.isfinite(wp)
+    assert torch.equal(fin, torch.isfinite(gp))
+    assert float((gp[fin] - wp[fin]).abs().max()) <= 0.05
+    assert torch.equal(torch.isneginf(gp), torch.isneginf(wp))
+    assert bool(torch.isnan(gp[-1])) and bool(torch.isnan(wp[-1]))
+    assert abs(float(ga[EDGE_TONES] - wa[EDGE_TONES])) <= 0.05
+    assert bool(torch.isneginf(ga[EDGE_TONES + 1]))
+    assert bool(torch.isneginf(wa[EDGE_TONES + 1]))
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 15)])
+def test_rx_kernel_index_and_tie_cases_on_card(cuda_device, n):
+    """rx_window_detect at every n from 4 to 16384 (8192 and 16384 through
+    the wide grid) on windows that reach the FFT unchanged (t_off 0, rate
+    0, scale 1, a multiplier of ones): the natural-bin map and the
+    first-max rule of the digit-reversed FFT give the plain version's
+    bins."""
+    if n <= 4096:
+        p, kw = T.LoraParams(sf=n.bit_length() - 1), {}
+    else:
+        osr = n // 4096
+        p, kw = T.LoraParams(sf=12, bw=125000 * osr, osr=osr), {"wide": True}
+    zr, zi, tones = _edge_windows(n)
+    dev = cuda_device
+    args = [torch.as_tensor(zr, device=dev), torch.as_tensor(zi, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, device=dev), torch.ones(1, device=dev),
+            torch.ones(n, device=dev), torch.zeros(n, device=dev), p]
+    count = "DENSE_LAUNCHES" if n <= 512 else "HYBRID_LAUNCHES"
+    own = getattr(cuda_rx, count)
+    got = cuda_rx.rx_window_detect(*args, **kw)
+    assert getattr(cuda_rx, count) == own + 1
+    want = cuda_rx.rx_window_detect_ref(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_edge_detections(got, want, tones, 8)
+
+
+@pytest.mark.parametrize("sf", range(2, 13))
+def test_stream_kernel_index_and_tie_cases_on_card(cuda_device, sf):
+    """stream_window_detect (stride one symbol, a multiplier of ones) on
+    the same eight windows and three more that lie wholly past the
+    stream's end (zero padding: bin 0, -inf dB): bins equal the plain
+    version's on all eleven."""
+    p = T.LoraParams(sf=sf)
+    n = p.n
+    zr, zi, tones = _edge_windows(n)
+    dev = cuda_device
+    r, i = (torch.as_tensor(a[0], device=dev) for a in (zr, zi))
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    got = cuda_stream.stream_window_detect(r, i, p, n, 11, ones, zeros)
+    want = cuda_stream.stream_window_detect_ref(r, i, p, n, 11, ones, zeros)
+    torch.cuda.synchronize()
+    _assert_edge_detections(got, want, tones, 8)
+    assert torch.equal(got[0], want[0])
+    assert got[0][8:].tolist() == [0, 0, 0]
+    for a in got[1:]:
+        assert bool(torch.isneginf(a[8:]).all())
+
+
 @pytest.mark.parametrize("sf,bw,osr", [(9, 250000, 2), (12, 500000, 4),
                                        (7, 125000, 2), (8, 125000, 4)])
 def test_tx_osr_kernel_matches_plain_on_card(cuda_device, sf, bw, osr):

@@ -5,7 +5,7 @@ Run from the root of a checkout:
 
     python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--osr 1]
                                    [--packets 8192] [--iters 5] [--out PATH]
-                                   [--stream]
+                                   [--stream] [--sass]
 
 It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
 the given sf, bandwidth and oversampling, CR4-5, on random 32-byte payloads
@@ -33,7 +33,12 @@ all from one process:
   unprofiled run;
 - each stage alone: its host enqueue ms (until the call returns, no
   synchronize) and its wall ms (until a synchronize after it), the median
-  over ``--iters`` iterations.
+  over ``--iters`` iterations;
+- the SM clock (``nvidia-smi``) right after the timed iterations;
+- with ``--sass``, the static SASS instruction count (``cuobjdump -sass``
+  on the built kernel library) of each RX kernel instance the slice
+  launched: straight-line code for the ``StreamReader`` instances, an
+  upper bound where the accurate sincosf has a slow path.
 
 The report starts with the ``nvidia-smi`` name/power-limit line, is
 printed, and is written to ``--out`` (default
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import re
 import statistics
 import subprocess
 import sys
@@ -60,6 +66,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as lora  # noqa: E402
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (  # noqa: E402
     receiver, streaming)
+from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (  # noqa: E402
+    cuda_build)
 
 PAYLOAD = 32
 
@@ -70,6 +78,42 @@ def _smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _sm_clock() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _rx_label(name: str):
+    """``rx_dense_kernel<128, StreamReader>`` from a profiler or mangled
+    kernel name, or None for other kernels."""
+    m = re.search(r"(rx_[a-z]+_kernel)<(\d+), lora_rx::(\w+)>", name)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+    from chip_smoke import _kernel_label
+    label = _kernel_label(name)
+    return label if label.startswith("rx_") else None
+
+
+def _sass_counts() -> dict:
+    """{RX kernel instance: static SASS instructions, NOPs left out} of
+    the kernel library ``cuda_build.load()`` built."""
+    lib = cuda_build.BUILD_INFO["path"]
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                         text=True, timeout=600, check=True).stdout
+    counts = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        label = _rx_label(part.split("\n", 1)[0].strip())
+        if label:
+            counts[label] = sum(
+                1 for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", part)
+                if not op.strip().startswith("NOP"))
+    return counts
 
 
 def _wide(p) -> bool:
@@ -194,6 +238,9 @@ def main() -> int:
     ap.add_argument("--power-gate-db", type=float, default=5.0,
                     help="receive_stream's sync gate (chip_smoke.py's S7 "
                          "and S12 pass 4)")
+    ap.add_argument("--sass", action="store_true",
+                    help="report the static SASS instruction count of the "
+                         "RX kernel instances the slice launched")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA card", file=sys.stderr)
@@ -237,6 +284,7 @@ def main() -> int:
             "the slice did not demodulate"
 
     wall = _wall_ms(run, args.iters)
+    clock = _sm_clock()
     acts = _device_activity(run, args.iters)
     if not acts:
         print("profile_slice: the profiler recorded no device activity",
@@ -265,6 +313,8 @@ def main() -> int:
         f"wall per iteration {wall:.3f} ms (CUDA events, no profiler); "
         f"device busy {busy:.3f} ms per iteration ({launches:.0f} device "
         f"activities); idle share {1.0 - busy / wall:.3f}",
+        f"SM clock right after the timed iterations, and its maximum: "
+        f"{clock}",
         "device time per iteration, by activity:",
     ]
     for name, (count, us) in sorted(acts.items(), key=lambda kv: -kv[1][1]):
@@ -274,6 +324,12 @@ def main() -> int:
     for name, (enq, tot) in per_stage.items():
         lines.append(f"  {name:22s} {statistics.median(enq):8.3f} / "
                      f"{statistics.median(tot):8.3f}")
+    if args.sass:
+        counts = _sass_counts()
+        lines.append("static SASS instructions a thread of each RX kernel "
+                     "instance launched:")
+        for label in sorted({_rx_label(n) for n in acts} - {None}):
+            lines.append(f"  {label}: {counts[label]}")
     report = "\n".join(lines)
     print(report)
     kind = "stream_" if args.stream else ""

@@ -84,19 +84,50 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    the ``auto`` route's, dB within 0.05; each rotate-detect call of the
    route against its plain version on the same inputs (bins on every row,
    dB within 0.05);
+8F. framed SX1272 packets, ``encode_frame -> modulate_dechirped ->
+   demodulate_tones -> decode_frame_padded``: sf7/BW125/CR4-5, 8192 x 32 B
+   (58 symbols), and sf12/BW125/CR4-5, 256 x 32 B (38 symbols), 16 frames
+   of each with a symbol moved beyond FEC reach, then 8192 sf7 frames of
+   lengths 1-32 at ``max_payload_len`` 32: bytes, lengths, hdr_ok and
+   crc_ok exact, the corrupted ones failing, and the plain versions on the
+   card giving the same frames;
+8S. framed streams through ``receive_stream_frames`` in one call, each of
+   S7's length (71,303,168 samples), frames of lengths 1-32 at k*pitch +
+   u_k (pitch the maximal frame plus 2 symbols), AWGN sigma 0.05: F7
+   sf7/BW125/CR4-5, 8192 frames, stride 32, gate 4 dB; FW wide
+   sf9/BW250/CR4-8/osr2, 896 frames, stride 128.  Every planted frame once
+   at its start with exact bytes, length and verdicts, every other
+   candidate failing its CRC, nothing dropped, #7 against its plain version
+   on the path's call, the plain versions on the card giving the same
+   frames, and F7's first 64 frames in chunks of 65,536 samples equal to
+   the one call;
 7. timing (printed, not asserted): packets/s of every slice through the
    kernels and through the plain versions (and the sf12 full RX), packets/s
-   and Msamples/s of every stream slice, and each kernel alone beside its
+   and Msamples/s of every stream slice, frames/s and Msamples/s of the
+   framed sf7 slice and of F7, and each kernel alone beside its
    plain version at each slice's shapes, with CUDA events, beside its
    bound (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the
    larger); beside ``rx_hybrid`` at sf12 and A and ``stream_scan`` at S7
    and S12, ``torch.fft.fft`` alone over the same windows already
    materialised as complex64 (the FFT step only, a yardstick the port
-   never calls).
+   never calls);
+8W. every row of ``tests/vectors/sensitivity.csv`` through ``per_sweep``
+   on the card, with the packets and dB tolerance ``tests/test_sweep.py``
+   gives it: 5 SNR points, the SNR at 1 % PER within tolerance of the
+   committed one; and the sf7 SER waterfall within 1 dB of theory at 1e-2
+   (1500 packets);
+8L. LoRaWAN: 256 frames through ``build_frame -> modulate_dechirped ->
+   demodulate_tones -> parse_frame``, every MIC verifying, and a flipped
+   MIC byte raising ``MicMismatchError``; prints whether the host AES/CMAC
+   is native or pure Python;
+8R. the port's runners as subprocesses on the default device: ``tx | rx``
+   unframed and framed, and ``stream_rx --framed`` on a capture of four
+   frames, all five processes started together.
 
-Every slice and full-RX run sets the launch counts to 0 just before it
-and reads them just after; a kernel of that path that did not launch
-fails the run.
+Phases run in the order 1-6D, 8F, 8S, 7, 8W, 8L, 8R (phase 7 times 8F's and
+8S's cells).  Every slice, stream and full-RX run, and each phase 8, sets
+the launch counts to 0 just before it and reads them just after; a kernel
+of that path that did not launch fails the run.
 It ends with a JSON line of the kernels, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
 CUDA device, or outside a checkout, it exits nonzero and prints no result.
@@ -122,13 +153,13 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.modem import
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.tones import (
     _tones_mult)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_detect, cuda_rx, cuda_stream, cuda_tx)
+    codes, cuda_detect, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
     streaming)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (
-    cuda_build)
+    cuda_build, native)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.tensors import (
     device_table)
 
@@ -161,6 +192,13 @@ STREAM_SIGMA = 0.05     # AWGN of the stream slices (bench.py:345)
 STREAM_CHUNK = 65536    # the streaming runner's default chunk
 STREAM_CHUNK_PACKETS = 64
 DETECT_ROWS = (16, 10)  # phase 3's #8 cases: packets x symbols
+FRAME_MAX = 32          # max_payload_len of the framed phases (bench.py:64)
+FRAMES_MIXED = 8192     # phase 8F's sf7 batch of lengths 1-32
+CORRUPTED = 16          # frames given a symbol beyond FEC reach (8F)
+# phase 8S: one stream of S7's length (8192 x (66 + 2) symbols of 128)
+FRAME_STREAM_SAMPLES = 71_303_168
+FRAME_CHUNK_FRAMES = 64
+LORAWAN_FRAMES = 256
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 7
@@ -1090,6 +1128,433 @@ def phase_full_rx(dev, rng):
     return out, launches_all
 
 
+def _frame_batch(p, lengths, dev, rng):
+    """Framed symbols of random payloads of the given lengths, each row
+    padded to the ``FRAME_MAX`` frame's symbol count (the padding past a
+    frame is ignored by the padded decoder), and the payloads zero past
+    their length: (symbols, payload, on-air symbols of each frame)."""
+    count = len(lengths)
+    s_max = lora.max_frame_symbols(p, FRAME_MAX)
+    payload = torch.zeros(count, FRAME_MAX, dtype=torch.uint8, device=dev)
+    syms = torch.zeros(count, s_max, dtype=torch.int32, device=dev)
+    nsym = np.zeros(count, np.int64)
+    for n in np.unique(lengths):
+        rows = np.nonzero(lengths == n)[0]
+        pay = torch.as_tensor(
+            rng.integers(0, 256, (rows.size, n)).astype(np.uint8), device=dev)
+        at = torch.as_tensor(rows, device=dev)
+        payload[at, :n] = pay
+        s = lora.encode_frame(pay, p)
+        syms[at, :s.shape[-1]] = s
+        nsym[rows] = s.shape[-1]
+    return syms, payload, nsym
+
+
+def _framed_rx(syms, p):
+    """``modulate_dechirped -> demodulate_tones -> decode_frame_padded``."""
+    dr, di = lora.modulate_dechirped(syms, p)
+    res = lora.demodulate_tones(dr, di, p)
+    return res, lora.decode_frame_padded(res.symbols, p, FRAME_MAX)
+
+
+def _framed_pipeline(payload, p):
+    return _framed_rx(lora.encode_frame(payload, p), p)
+
+
+def _same_frames(got, want, what) -> None:
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+
+
+def phase_framed(dev, rng) -> dict:
+    """8F: framed packets through ``encode_frame -> modulate_dechirped ->
+    demodulate_tones -> decode_frame_padded`` at sf7 (8192 x 32 B) and sf12
+    (256 x 32 B), CORRUPTED frames of each with their first payload symbol
+    moved by n/2 (two data bits flipped past the parity code), and an sf7
+    batch of lengths 1-32 through the padded decoder; the plain versions
+    on the card give the same frames."""
+    launches = {name: 0 for name in KERNELS}
+    parts, out = [], {}
+    for label, p, count in (
+            ("sf7", lora.LoraParams(sf=7, bw=125000, cr="4/5"), PACKETS),
+            ("sf12", lora.LoraParams(sf=12, bw=125000, cr="4/5"),
+             PACKETS_SF12)):
+        kernels = (_tx_kernel_name(p), _rx_kernel_name(p))
+        payload = torch.as_tensor(
+            rng.integers(0, 256, (count, FRAME_MAX)).astype(np.uint8),
+            device=dev)
+        bad = np.sort(rng.choice(count, CORRUPTED, replace=False))
+        syms = lora.encode_frame(payload, p)
+        hdr = codes.N_HEADER_SYMBOLS
+        syms[torch.as_tensor(bad, device=dev), hdr] ^= p.n // 2
+        _sync()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res, fr = _framed_rx(syms, p)
+        _sync()
+        seconds = time.perf_counter() - t0
+        got = _counts()
+        assert all(got[k] > 0 for k in kernels), got
+        assert tuple(res.symbols.shape) == (count, syms.shape[-1])
+        assert bool((res.sync_word == 0x12).all()), "sync word"
+        want_ok = np.ones(count, bool)
+        want_ok[bad] = False
+        assert bool(fr.hdr_ok.all()) and bool((fr.length == FRAME_MAX).all())
+        assert np.array_equal(fr.crc_ok.cpu().numpy(), want_ok)
+        exact = (fr.payload == payload).all(dim=-1).cpu().numpy()
+        assert np.array_equal(exact, want_ok), np.nonzero(exact != want_ok)
+        with _plain_versions():
+            _same_frames(_framed_rx(syms, p)[1], fr, label)
+        for k in KERNELS:
+            launches[k] += got[k]
+        out[label] = {"p": p, "payload": payload}
+        parts.append(
+            f"{_describe(p)} {count} x {FRAME_MAX} B ({syms.shape[-1]} "
+            f"symbols, {count * (syms.shape[-1] + 2) * p.step / 1e6:.1f} M "
+            f"samples): bytes, lengths and hdr_ok exact, crc_ok False on "
+            f"exactly the {CORRUPTED} corrupted; launches "
+            f"{kernels[0]}={got[kernels[0]]} {kernels[1]}={got[kernels[1]]}; "
+            f"first run {seconds:.3f} s")
+    p = out["sf7"]["p"]
+    lengths = rng.integers(1, FRAME_MAX + 1, FRAMES_MIXED)
+    syms, payload, _ = _frame_batch(p, lengths, dev, rng)
+    _sync()
+    _reset_counts()
+    res, fr = _framed_rx(syms, p)
+    _sync()
+    got = _counts()
+    assert got["tx_dense"] > 0 and got["rx_dense"] > 0, got
+    assert torch.equal(fr.length.cpu(), torch.as_tensor(lengths,
+                                                        dtype=torch.int32))
+    assert bool(fr.hdr_ok.all()) and bool(fr.crc_ok.all())
+    assert torch.equal(fr.payload, payload)
+    assert int(fr.n_err.sum()) == 0
+    with _plain_versions():
+        _same_frames(_framed_rx(syms, p)[1], fr, "mixed")
+    for k in KERNELS:
+        launches[k] += got[k]
+    parts.append(f"{_describe(p)} {FRAMES_MIXED} frames of lengths 1-"
+                 f"{FRAME_MAX} (padded to {syms.shape[-1]} symbols) at "
+                 f"max_payload_len {FRAME_MAX}: bytes, lengths, hdr_ok and "
+                 f"crc_ok exact, no FEC error")
+    print(f"phase 8F framed packets: {'; '.join(parts)}; the plain versions "
+          f"on the card give the same frames", flush=True)
+    return {"slices": out, "launches": launches}
+
+
+def _frame_stream(p, count: int, rng, dev):
+    """A framed stream of FRAME_STREAM_SAMPLES samples: ``count`` frames of
+    random lengths 1-FRAME_MAX, frame k at k*pitch + u_k (pitch the maximal
+    frame plus 2 symbols, u_k uniform in [0, step)), over AWGN sigma 0.05
+    per plane; modulated by the TX kernels, noise from a seeded generator
+    on the card.  Returns (re, im, payload, lengths, planted starts)."""
+    plen = lora.packet_samples(p, lora.max_frame_symbols(p, FRAME_MAX))
+    pitch = plen + 2 * p.step
+    assert count * pitch <= FRAME_STREAM_SAMPLES, (count, pitch)
+    lengths = rng.integers(1, FRAME_MAX + 1, count)
+    syms, payload, nsym = _frame_batch(p, lengths, dev, rng)
+    re, im = lora.modulate(syms, p)
+    flen = torch.as_tensor((nsym + 2) * p.step, device=dev)
+    u = torch.as_tensor(rng.integers(0, p.step, count), device=dev)
+    starts = torch.arange(count, device=dev) * pitch + u
+    src = torch.arange(pitch, device=dev) - u[:, None]
+    inside = (src >= 0) & (src < flen[:, None])
+    src.clamp_(0, plen - 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + count)
+    planes = []
+    for x in (re, im):
+        plane = torch.randn(FRAME_STREAM_SAMPLES, generator=gen, device=dev)
+        plane *= STREAM_SIGMA
+        plane[:count * pitch] += (torch.gather(x, 1, src) * inside).reshape(-1)
+        planes.append(plane)
+    del src, inside, re, im
+    return planes[0], planes[1], payload, lengths, starts
+
+
+def _frame_set(fr, end=None) -> list:
+    """(start, bytes, length, hdr_ok, crc_ok) of the valid frames that
+    start before ``end``."""
+    h = {f: getattr(fr, f).cpu().numpy()
+         for f in ("valid", "start", "payload", "length", "hdr_ok", "crc_ok")}
+    return sorted((int(h["start"][k]),
+                   h["payload"][k, :h["length"][k]].tobytes(),
+                   int(h["length"][k]), bool(h["hdr_ok"][k]),
+                   bool(h["crc_ok"][k]))
+                  for k in np.nonzero(h["valid"])[0]
+                  if end is None or h["start"][k] < end)
+
+
+def _frames_chunked(sr, si, p, fr, kw) -> int:
+    """The first FRAME_CHUNK_FRAMES frames fed in chunks of STREAM_CHUNK
+    samples with carried state equal the one call's frames that complete
+    inside those chunks.  Returns the number of frames compared."""
+    plen = lora.packet_samples(p, lora.max_frame_symbols(p, FRAME_MAX))
+    pitch = plen + 2 * p.step
+    chunks = -(-FRAME_CHUNK_FRAMES * pitch // STREAM_CHUNK)
+    end = chunks * STREAM_CHUNK
+    state = lora.stream_frames_init(p, FRAME_MAX, device=sr.device)
+    got = []
+    for c in range(chunks):
+        part = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+        fc, state = lora.receive_stream_frames(
+            sr[part], si[part], p, **{**kw, "max_packets": 64}, state=state)
+        assert int(fc.n_dropped) == 0, c
+        got += _frame_set(fc)
+    want = _frame_set(fr, end=end - plen + 1)
+    assert sorted(got) == want, (len(got), len(want))
+    assert len(want) >= FRAME_CHUNK_FRAMES, len(want)
+    return len(want)
+
+
+def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
+                       gate: float) -> dict:
+    """8S: a framed stream through ``receive_stream_frames`` in one call.
+    Every planted frame comes back once at its start with its bytes,
+    length and verdicts; other candidates (random symbols of a frame that
+    pass the sync test) fail their CRC; nothing is dropped; the plain
+    versions on the card give the same frames."""
+    sr, si, payload, lengths, starts = _frame_stream(p, count, rng, dev)
+    wide = _is_wide(p)
+    rx = _rx_kernel_name(p, wide)
+    kw = {"max_payload_len": FRAME_MAX, "max_packets": 2 * count,
+          "stride": stride, "power_gate_db": gate}
+    calls = []
+    _sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _capture(streaming, "stream_window_detect", calls):
+        fr, state = lora.receive_stream_frames(sr, si, p, **kw)
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    assert launches["stream_scan"] == 1 and launches[rx] > 0, launches
+    assert int(fr.n_dropped) == 0, int(fr.n_dropped)
+    assert int(state.offset) == sr.shape[-1]
+    v = fr.valid.cpu().numpy()
+    row_of = {int(fr_start): r for r, fr_start in
+              zip(np.nonzero(v)[0], fr.start.cpu().numpy()[v])}
+    assert len(row_of) == int(v.sum()), "two candidates at one start"
+    rows = np.array([row_of.get(int(g), -1) for g in starts.cpu().numpy()])
+    assert (rows >= 0).all(), f"{int((rows < 0).sum())} frames not found"
+    rows_t = torch.as_tensor(rows, device=dev)
+    assert torch.equal(fr.payload[rows_t], payload)
+    assert np.array_equal(fr.length.cpu().numpy()[rows], lengths)
+    assert bool(fr.hdr_ok[rows_t].all()) and bool(fr.crc_ok[rows_t].all())
+    assert bool((fr.sync_word[rows_t] == 0x12).all()), "sync word"
+    extra = np.setdiff1d(np.nonzero(v)[0], rows)
+    assert not fr.crc_ok.cpu().numpy()[extra].any(), "a false frame passed"
+    (scan_args, scan_kw), = calls
+    scan_err = _scan_compare(scan_args, (label, "full size"))
+    with _plain_versions():
+        plain, _ = lora.receive_stream_frames(sr, si, p, **kw)
+    for f in ("payload", "length", "hdr_ok", "crc_ok", "valid", "start",
+              "sync_word", "n_err", "n_candidates", "n_dropped"):
+        assert torch.equal(getattr(plain, f), getattr(fr, f)), f
+    assert float((plain.cfo - fr.cfo).abs().max()) <= 1e-5
+    assert float((plain.time_offset - fr.time_offset).abs().max()) \
+        <= TIME_ATOL
+    chunked = ""
+    if label == "F7":
+        chunked = (f"; the first {_frames_chunked(sr, si, p, fr, kw)} "
+                   f"frames in chunks of {STREAM_CHUNK} samples with carried "
+                   f"state = the one call")
+    pitch = lora.packet_samples(p, lora.max_frame_symbols(p, FRAME_MAX)) \
+        + 2 * p.step
+    print(f"phase 8S framed stream {label}: {_describe(p)}, one stream of "
+          f"{sr.shape[-1]:,} samples, {count} frames of lengths 1-"
+          f"{FRAME_MAX} at k*{pitch} + u_k, stride {stride}, gate {gate} dB, "
+          f"through receive_stream_frames "
+          f"({'demodulate_wide' if wide else 'demodulate_tones'}): every "
+          f"frame once at its planted start, bytes, lengths, hdr_ok and "
+          f"crc_ok exact, sync 0x12, {int(fr.n_candidates)} candidates of "
+          f"which {extra.size} inside frames (all failing their CRC), 0 "
+          f"dropped; launches stream_scan={launches['stream_scan']} "
+          f"{rx}={launches[rx]}; stream_scan vs plain on the path's call: "
+          f"bins equal on every clear window, max |d dB| = {scan_err:.3g}; "
+          f"the plain versions on the card give the same frames{chunked}; "
+          f"first run {seconds:.3f} s", flush=True)
+    return {"p": p, "sr": sr, "si": si, "kw": kw, "count": count,
+            "launches": launches, "err": scan_err, "seconds": seconds}
+
+
+# phase 8W: each row of tests/vectors/sensitivity.csv with the LoraParams,
+# packets and dB tolerance tests/test_sweep.py:102-116 gives it
+# (sf7_bw125_cr47 takes sf7_bw125_cr45's)
+SWEEP_ROWS = {
+    "sf7_bw125_cr45": (dict(sf=7), 1500, 0.6),
+    "sf7_bw125_cr47": (dict(sf=7, cr="4/7"), 1500, 0.6),
+    "sf8_bw125_cr45": (dict(sf=8), 800, 0.7),
+    "sf9_bw250_cr48": (dict(sf=9, bw=250000, cr="4/8", osr=2), 500, 0.8),
+    "sf10_bw250_cr47": (dict(sf=10, bw=250000, cr="4/7", osr=2), 300, 0.85),
+    "sf11_bw500_cr45": (dict(sf=11, bw=500000, cr="4/5", osr=4), 200, 0.9),
+    "sf12_bw500_cr45": (dict(sf=12, bw=500000, cr="4/5", osr=4), 200, 0.9),
+}
+WATERFALL_PACKETS = 1500
+
+
+def phase_sweep(dev) -> dict:
+    """8W: every committed sensitivity row through ``per_sweep`` on the
+    card (5 SNR points, SNR at 1 % PER within the row's tolerance), and the
+    sf7 SER waterfall within 1 dB of theory at 1e-2."""
+    import csv
+    with (VEC_DIR / "sensitivity.csv").open() as f:
+        rows = {r["profile"]: r for r in csv.DictReader(f)}
+    assert set(rows) == set(SWEEP_ROWS), sorted(rows)
+    _sync()
+    _reset_counts()
+    parts = []
+    for name, (kw, packets, tol) in SWEEP_ROWS.items():
+        row = rows[name]
+        p = lora.LoraParams(**kw)
+        want = float(row["snr_db_at_1pct_per"])
+        snrs = [want - 1.0, want - 0.5, want, want + 0.5, want + 1.0]
+        pts = lora.sweep.per_sweep(p, snrs, packets=packets, payload_len=16,
+                                   seed=11, receiver=row["receiver"],
+                                   device=dev)
+        got = lora.sweep.snr_at_level(pts, 1e-2, field="per")
+        assert abs(got - want) < tol, (name, got, want, pts)
+        parts.append(f"{name} {got:.2f} dB (committed {want:.2f}, tol "
+                     f"{tol}, {packets} packets)")
+    snr_th = lora.sweep.snr_at_ser_theory(1e-2, 7)
+    pts = lora.sweep.per_sweep(
+        lora.LoraParams(sf=7), [snr_th - 1.5, snr_th - 0.75, snr_th,
+                                snr_th + 0.75, snr_th + 1.5],
+        packets=WATERFALL_PACKETS, payload_len=16, seed=7, device=dev)
+    snr_meas = lora.sweep.snr_at_level(pts, 1e-2, field="ser")
+    assert abs(snr_meas - snr_th) < 1.0, (snr_meas, snr_th, pts)
+    _sync()
+    launches = _counts()
+    for k in ("tx_dense", "tx_osr", "rx_dense", "rx_hybrid"):
+        assert launches[k] > 0, (k, launches)
+    print(f"phase 8W sweep on the card, SNR at 1 % PER: {'; '.join(parts)}; "
+          f"sf7 waterfall SER 1e-2 at {snr_meas:.2f} dB, theory "
+          f"{snr_th:.2f} dB ({WATERFALL_PACKETS} packets); launches "
+          f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)}",
+          flush=True)
+    return {"launches": launches}
+
+
+def phase_lorawan(dev, rng) -> dict:
+    """8L: LORAWAN_FRAMES frames through ``build_frame ->
+    modulate_dechirped -> demodulate_tones -> parse_frame`` on the card,
+    every MIC verifying, and one frame with a flipped MIC byte raising
+    ``MicMismatchError``."""
+    wan = lora.lorawan
+    key = bytes(rng.integers(0, 256, 16).astype(np.uint8))
+    p = lora.LoraParams(sf=7, bw=125000, cr="4/5")
+    frames, rows = [], []
+    for k in range(LORAWAN_FRAMES):
+        f = wan.Frame()
+        f.mhdr.mtype = wan.MType.UNCONFIRMED_DATA_UP
+        f.fhdr.devaddr = int(rng.integers(0, 2 ** 32))
+        f.fhdr.fcnt = k
+        f.fhdr.fopts = bytes(rng.integers(0, 256, 2).astype(np.uint8))
+        f.payload = bytes(rng.integers(0, 256, 16).astype(np.uint8))
+        frames.append(f)
+        rows.append(wan.build_frame(key, f, device=dev))
+    wire = bytearray(wan.serialize_frame(key, frames[0]))
+    wire[-1] ^= 0x01
+    rows.append(lora.encode(torch.as_tensor(
+        np.frombuffer(bytes(wire), np.uint8).copy(), device=dev)[None])[0])
+    syms = torch.stack(rows)
+    _sync()
+    _reset_counts()
+    res = lora.demodulate_tones(*lora.modulate_dechirped(syms, p), p)
+    for k, f in enumerate(frames):
+        out = wan.parse_frame(key, res.symbols[k])
+        assert (out.payload, out.fhdr.devaddr, out.fhdr.fcnt,
+                out.fhdr.fopts) == (f.payload, f.fhdr.devaddr, f.fhdr.fcnt,
+                                    f.fhdr.fopts), k
+    try:
+        wan.parse_frame(key, res.symbols[-1])
+    except lora.errors.MicMismatchError:
+        pass
+    else:
+        raise AssertionError("a flipped MIC byte verified")
+    _sync()
+    launches = _counts()
+    assert launches["tx_dense"] > 0 and launches["rx_dense"] > 0, launches
+    crypto = "native" if native.available() else "pure Python"
+    print(f"phase 8L LoRaWAN: {LORAWAN_FRAMES} frames ({syms.shape[-1]} "
+          f"symbols, {_describe(p)}) through build_frame -> "
+          f"modulate_dechirped -> demodulate_tones -> parse_frame on the "
+          f"card, every MIC verified; a flipped MIC byte raised "
+          f"MicMismatchError; host AES/CMAC {crypto}; launches "
+          f"tx_dense={launches['tx_dense']} rx_dense={launches['rx_dense']}",
+          flush=True)
+    return {"launches": launches}
+
+
+def phase_runners(dev, rng) -> None:
+    """8R: the port's runners as subprocesses on the default device (the
+    card): ``tx | rx`` unframed and framed, and ``stream_rx --framed`` on a
+    capture of a few frames, all started together."""
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_runners"
+    work.mkdir(parents=True, exist_ok=True)
+    p = lora.LoraParams(sf=7, cr="4/8")
+    offsets, pays = (3008, 12000, 21000, 30016), []
+    sr = (rng.standard_normal(40960) * STREAM_SIGMA).astype(np.float32)
+    si = (rng.standard_normal(40960) * STREAM_SIGMA).astype(np.float32)
+    for g, n in zip(offsets, (5, 12, 1, 16)):
+        pay = rng.integers(0, 256, n).astype(np.uint8)
+        pays.append(pay)
+        re, im = lora.modulate(lora.encode_frame(
+            torch.as_tensor(pay, device=dev)[None], p), p)
+        sr[g:g + re.shape[-1]] += re[0].cpu().numpy()
+        si[g:g + re.shape[-1]] += im[0].cpu().numpy()
+    inter = np.empty(2 * sr.size, np.float32)
+    inter[0::2], inter[1::2] = sr, si
+    cap = work / "frames.f32"
+    inter.tofile(cap)
+
+    def cmd(mod, *args):
+        return [sys.executable, "-m", f"{PKG}.runners.{mod}", *args]
+    pipes = {"unframed": ("DEADBEEFCAFEF00D", ["--sf=7"]),
+             "framed": ("DEADBEEFCAFE01", ["--sf=8", "--cr=4/6", "--framed"])}
+    procs = []
+    try:
+        started = time.perf_counter()
+        for payload, flags in pipes.values():
+            tx = subprocess.Popen(cmd("tx", f"--payload={payload}",
+                                      "--out=-", *flags),
+                                  stdout=subprocess.PIPE, cwd=work.parent.parent)
+            rx = subprocess.Popen(cmd("rx", "--in=-", *flags),
+                                  stdin=tx.stdout, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE,
+                                  cwd=work.parent.parent)
+            tx.stdout.close()
+            procs += [tx, rx]
+        stream = subprocess.Popen(
+            cmd("stream_rx", f"--in={cap}", "--sf=7", "--cr=4/8",
+                "--payload-bytes=16", "--framed"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            cwd=work.parent.parent)
+        procs.append(stream)
+        outs = [proc.communicate(timeout=300) for proc in procs[1::2]] + \
+            [stream.communicate(timeout=300)]
+        seconds = time.perf_counter() - started
+        for proc in procs:
+            assert proc.wait(timeout=60) == 0, (proc.args, outs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (payload, _), (out, err) in zip(pipes.values(), outs):
+        assert out.decode().strip() == payload, (out, err)
+    (out, err) = outs[-1]
+    lines = [line.split() for line in out.decode().splitlines()]
+    want = [[str(g), "1", bytes(pay).hex().upper(), f"len={pay.size}",
+             "hdr_ok=1"] for g, pay in zip(offsets, pays)]
+    assert lines == want, (lines, want, err)
+    print(f"phase 8R runners on the card (default device): tx | rx unframed "
+          f"and framed (sf8/CR4-6) give their payloads, stream_rx --framed "
+          f"finds {len(lines)} frames of lengths "
+          f"{', '.join(str(x.size) for x in pays)} at their offsets with "
+          f"their bytes; 5 processes started together, {seconds:.1f} s",
+          flush=True)
+
+
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time the card could take for the work, in ms: bytes over
     the memory rate or operations over the float32 rate, the larger."""
@@ -1208,7 +1673,8 @@ def _kernel_alone(kernel, plain, call, bound) -> tuple:
         + bound(args, kw)
 
 
-def phase_timing(slices, full_rx, smi, streams, route):
+def phase_timing(slices, full_rx, smi, streams, route, framed,
+                 frame_streams):
     """Packets/s of each slice through the kernels and the plain versions,
     and each kernel alone beside its plain version at the slice's shapes:
     {(kernel, slice label): (ms, plain ms, bound ms, bound by)}, and the
@@ -1287,6 +1753,37 @@ def phase_timing(slices, full_rx, smi, streams, route):
             f"{k_ms:.4f} ms vs plain {kp_ms:.4f} ms (bound {kb_ms:.4f} ms "
             f"by {kb_by}; reads the stream at "
             f"{ext_bytes / (k_ms * 1e-3) / 1e12:.3f} TB/s){yard}")
+    sl = framed["slices"]["sf7"]
+    p, payload = sl["p"], sl["payload"]
+    count = payload.shape[0]
+    samples = count * (lora.frame_symbols(p, FRAME_MAX) + 2) * p.step / 1e6
+    ms, plain_ms = _abba(lambda: _framed_pipeline(payload, p),
+                         lambda: _plain(_framed_pipeline, payload, p),
+                         iters=5)
+    lines.append(
+        f"framed sf7 {_describe(p)} slice ({count} x {FRAME_MAX} B) "
+        f"{count / (ms / 1e3):,.0f} frames/s, {samples / (ms / 1e3):,.1f} "
+        f"Msamples/s ({ms:.3f} ms) through the kernels, "
+        f"{count / (plain_ms / 1e3):,.0f} frames/s ({plain_ms:.3f} ms) "
+        f"through the plain versions")
+    for label, st in frame_streams.items():
+        p, sr, si, kw, count = (st[k] for k in ("p", "sr", "si", "kw",
+                                                "count"))
+
+        def plain_frames():
+            with _plain_versions():
+                return lora.receive_stream_frames(sr, si, p, **kw)
+        ms, plain_ms = _abba(lambda: lora.receive_stream_frames(sr, si, p,
+                                                                **kw),
+                             plain_frames, iters=3)
+        msamples = sr.shape[-1] / 1e6
+        lines.append(
+            f"framed stream {label} {_describe(p)} {count / (ms / 1e3):,.0f} "
+            f"frames/s, {msamples / (ms / 1e3):,.1f} Msamples/s ({ms:.3f} ms "
+            f"/ {count} frames; first run {st['seconds']:.3f} s) through the "
+            f"kernels, {count / (plain_ms / 1e3):,.0f} frames/s, "
+            f"{msamples / (plain_ms / 1e3):,.1f} Msamples/s ({plain_ms:.3f} "
+            f"ms) through the plain versions")
     times["rotate_detect", "sf7"] = _kernel_alone(
         cuda_detect.fused_rotate_detect, cuda_detect.fused_rotate_detect_ref,
         route["call"], _detect_bound)
@@ -1333,8 +1830,17 @@ STREAMS = (("S7", lora.LoraParams(sf=7, bw=125000, cr="4/5"), 8192, 4.0),
             5.0))
 
 
+# (label, params, frames, stride, power gate dB) of phase 8S: F7 is S7's
+# configuration and gate with frames of lengths 1-32; FW is SW's wide
+# configuration at its default gate
+FRAME_STREAMS = (
+    ("F7", lora.LoraParams(sf=7, bw=125000, cr="4/5"), 8192, 32, 4.0),
+    ("FW", lora.LoraParams(sf=9, bw=250000, cr="4/8", osr=2), 896, 128,
+     5.0))
+
+
 def run_phases(dev, rng, smi) -> list[dict]:
-    """Phases 3-7; returns the kernels' line entries."""
+    """Phases 3-8R; returns the kernels' line entries."""
     err = phase_kernel_vs_plain(dev, rng)
     slices = {}
     for phase, label, p, count, cpu_count in (
@@ -1353,7 +1859,21 @@ def run_phases(dev, rng, smi) -> list[dict]:
                for label, p, count, gate in STREAMS}
     full_rx, launches = phase_full_rx(dev, rng)
     route = phase_detect_route(dev, slices, full_rx)
-    times, cufft = phase_timing(slices, full_rx, smi, streams, route)
+    framed = phase_framed(dev, rng)
+    frame_streams = {label: phase_frame_stream(dev, rng, label, p, count,
+                                               stride, gate)
+                     for label, p, count, stride, gate in FRAME_STREAMS}
+    times, cufft = phase_timing(slices, full_rx, smi, streams, route,
+                                framed, {"F7": frame_streams["F7"]})
+    for st in frame_streams.values():
+        err["stream_scan"] = max(err["stream_scan"], st["err"])
+        del st["sr"], st["si"]
+    later = [framed, *frame_streams.values(), phase_sweep(dev),
+             phase_lorawan(dev, rng)]
+    phase_runners(dev, rng)
+    for ph in later:
+        for name in KERNELS:
+            launches[name] += ph["launches"][name]
     launches["rotate_detect"] += route["launches"]
     err["rotate_detect"] = max(err["rotate_detect"], route["err"])
     for sl in list(slices.values()) + list(streams.values()):

@@ -18,7 +18,14 @@ point ``modulate -> demodulate`` (with ``estimate_offsets`` and
 receiver ``receive_stream`` (``parallel/``) takes chunks of a continuous
 stream and returns the packets in it, and ``demodulate_tones``/``demodulate``
 take the JAX package's ``backend`` values (``"pallas"`` is the two-stage
-rotate-detect route).
+rotate-detect route).  The SX1272 framed codec (``models/frame.py``:
+explicit header, whitening, FEC at the profile's coding rate, the diagonal
+interleave, Gray) rides the same kernels, and ``receive_stream_frames``
+receives streams of frames of mixed lengths.  ``ops/channel.py`` and
+``models/sweep.py`` give the AWGN BER/PER sweep, ``models/lorawan.py`` the
+LoRaWAN MAC (host AES/CMAC through ``utils/native.py``), and ``runners/``
+the command-line tools (``--device cpu`` for the CPU).  The
+``torch.distributed`` layer (the JAX package's ``mesh``) is still to come.
 """
 from .utils.config import (LoraParams, Window, load_profiles,
                            params_from_profile, params_from_reference,
@@ -30,10 +37,17 @@ from .models.modem import (
     from_complex, crc_sx1272, DemodResult, OffsetEstimate,
 )
 from .models.tones import demodulate_tones
+from .models import lorawan, sweep
+from .models.frame import (
+    encode_frame, decode_frame, decode_frame_padded, decode_header,
+    frame_symbols, max_frame_symbols, FrameHeader, FrameResult,
+)
+from .ops import channel
 from .parallel import streaming
 from .parallel.receiver import (
-    receive_stream, stream_rx_init, packet_samples, StreamRxState,
-    RecoveredPackets,
+    receive_stream, receive_stream_frames, stream_rx_init,
+    stream_frames_init, packet_samples, StreamRxState,
+    RecoveredPackets, RecoveredFrames,
 )
 
 __version__ = "0.1.0"

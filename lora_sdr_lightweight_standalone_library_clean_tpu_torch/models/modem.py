@@ -141,6 +141,20 @@ def _crc_position_tables(n: int) -> np.ndarray:
     return s
 
 
+def _xor_reduce_last(x):
+    """XOR-reduce the last axis with a log-depth fold, as the JAX package
+    does (used by the dynamic-length frame CRC, ``models/frame.py::
+    crc_sx1272_at``).  An empty axis reduces to 0."""
+    if x.shape[-1] == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        folded = x[..., :half] ^ x[..., half:2 * half]
+        x = folded if x.shape[-1] % 2 == 0 else torch.cat(
+            [folded, x[..., 2 * half:]], dim=-1)
+    return x[..., 0]
+
+
 @functools.lru_cache(maxsize=None)
 def _crc_bit_matrix(n: int) -> np.ndarray:
     """(n*8, 16) GF(2) generator matrix of the n-byte SX1272 CRC.
@@ -551,7 +565,8 @@ def _signed_mod(x, m: int):
 
 
 def demodulate_wide(iq_r, iq_i, params: LoraParams,
-                    normalize: bool = True) -> DemodResult:
+                    normalize: bool = True,
+                    backend: str = "auto") -> DemodResult:
     """Injective oversampled demodulation: the BW-250/500 receiver the
     reference cannot express (the JAX package's ``models/modem.py:
     539-722``).
@@ -579,9 +594,21 @@ def demodulate_wide(iq_r, iq_i, params: LoraParams,
     runs ``rx_dense``/``rx_hybrid`` at n*osr points, a CPU input the plain
     version.
 
+    ``backend`` takes the JAX package's kernel values: ``"auto"`` and
+    ``"pallas_rx"`` both run the fused RX above (the device of the input
+    decides kernel or plain version); any other value raises, as
+    ``models/tones.py::_two_stage`` does for a value it does not know (the
+    wide receiver has no two-stage route, and a CPU tensor is the plain
+    route, so there is no ``"jnp"``).
+
     Returns a DemodResult; ``symbols`` are recovered symbol values (divided
     out of the wide-bin grid), ``power``/``power_avg`` per symbol in dB.
     """
+    if backend not in ("auto", "pallas_rx"):
+        raise InvalidArgumentError(
+            f"backend {backend!r}: the wide receiver's routes are 'auto' and "
+            "'pallas_rx' (the fused RX kernel); a CPU tensor runs its plain "
+            "version, so there is no 'jnp' route")
     n, osr, step = params.n, params.osr, params.step
     bs = params.bw_scale
     if osr < bs:

@@ -34,10 +34,12 @@ Each launch adds one to its kernel's count (``DENSE_LAUNCHES``,
 ``HYBRID_LAUNCHES`` or ``OSR_LAUNCHES``) and to their sum
 ``KERNEL_LAUNCHES``.
 
-Non-finite input is outside this contract and no test feeds it.  Where
-|X|^2 holds a NaN, both versions follow the jnp rule: the first NaN bin
-wins, as ``torch.argmax`` and ``jnp.argmax`` pick it.  (The TPU kernel's
-float first-max returns the out-of-range bin n instead,
+Non-finite input: where |X|^2 holds a NaN, both versions follow the jnp
+rule: the first NaN bin wins, as ``torch.argmax`` and ``jnp.argmax`` pick
+it.  ``tests/test_torch_modem.py`` holds the plain version to JAX's jnp
+``demodulate_tones`` on a window with one NaN sample on the CPU, and
+``tests/test_torch_cuda.py`` the kernels to the plain version on the card.
+(The TPU kernel's float first-max returns the out-of-range bin n instead,
 ``pallas_rx.py:326``.)
 
 Kernel note.  Replaces ``ops/pallas_rx.py:_rx_kernel`` (direct window,

@@ -11,9 +11,9 @@ kernel, so their counterparts here are plain ``torch.matmul``:
 
 All twiddle/DFT matrices are host-built in float64 and used as float32.
 On the card the products must run in full float32: TF32 keeps about three
-decimal digits, enough to move a detection (``chip_smoke.py`` asserts
-``torch.backends.cuda.matmul.allow_tf32`` is False).  Batched over
-arbitrary leading axes.
+decimal digits, enough to move a detection, so ``dft_ri`` runs them under
+``utils/tensors.py::full_float32`` whatever the caller's TF32 switch is.
+Batched over arbitrary leading axes.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.tensors import device_table
+from ..utils.tensors import device_table, full_float32
 
 __all__ = ["dft_ri", "FACTOR_THRESHOLD", "dft_factors"]
 
@@ -102,9 +102,11 @@ def _dft_four_step(zr, zi, n: int):
 def dft_ri(zr, zi, method: str = "auto"):
     """Forward DFT of (re, im) planes along the last axis.
 
-    ``method``: 'auto' | 'direct' | 'factored'.
+    ``method``: 'auto' | 'direct' | 'factored'.  The products run in full
+    float32 (``full_float32``).
     """
     n = zr.shape[-1]
-    if method == "direct" or (method == "auto" and n <= FACTOR_THRESHOLD):
-        return _dft_direct(zr, zi, n)
-    return _dft_four_step(zr, zi, n)
+    with full_float32():
+        if method == "direct" or (method == "auto" and n <= FACTOR_THRESHOLD):
+            return _dft_direct(zr, zi, n)
+        return _dft_four_step(zr, zi, n)

@@ -24,11 +24,16 @@ packet length, and absent packets are masked by ``valid``.  At bw_scale > 1
 the packets decode through the injective wide receiver
 (``demodulate_wide``, on by default when osr >= bw_scale).
 
+``receive_stream_frames`` is the header-driven receiver for traffic of
+mixed lengths: the same scan, ownership and extraction with every packet
+taken at its maximal frame length, then ``models/frame.py::
+decode_frame_padded`` reads each frame's explicit header and recovers its
+advertised length, up to ``max_payload_len``.
+
 The JAX package counts samples in int32 (its offset wraps after 2^31
 samples, about 4.8 hours at 125 kHz); the port counts them in int64.  The
 JAX package's ``mesh``/``axis`` sharding of the scan waits for the port's
-``torch.distributed`` layer, and ``receive_stream_frames`` (variable-length
-frames) for its ``models/frame.py``.
+``torch.distributed`` layer.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import frame as frame_codec
 from ..models.modem import decode, dechirp, demodulate_wide
 from ..models.tones import demodulate_tones
 from ..utils.config import LoraParams
@@ -43,8 +49,9 @@ from ..utils.errors import InvalidArgumentError
 from ..utils.tensors import host_device
 from .streaming import find_packet_starts, stream_scan
 
-__all__ = ["StreamRxState", "RecoveredPackets", "stream_rx_init",
-           "receive_stream", "packet_samples"]
+__all__ = ["StreamRxState", "RecoveredPackets", "RecoveredFrames",
+           "stream_rx_init", "stream_frames_init",
+           "receive_stream", "receive_stream_frames", "packet_samples"]
 
 
 class StreamRxState(NamedTuple):
@@ -86,6 +93,31 @@ def stream_rx_init(params: LoraParams, payload_symbols: int,
         tail_i=torch.zeros(plen, dtype=torch.float32, device=dev),
         offset=torch.zeros((), dtype=torch.int64, device=dev),
     )
+
+
+class RecoveredFrames(NamedTuple):
+    """Up to ``max_packets`` variable-length frames from one chunk."""
+
+    payload: torch.Tensor    # (K, max_payload_len) uint8, zero past length
+    length: torch.Tensor     # (K,) int32 payload bytes from each header
+    hdr_ok: torch.Tensor     # (K,) bool explicit-header checksum verdict
+    crc_ok: torch.Tensor     # (K,) bool payload CRC verdict
+    valid: torch.Tensor      # (K,) bool: entry k holds a real detection
+    start: torch.Tensor      # (K,) int64 global sample index of sync start
+    sync_word: torch.Tensor  # (K,) uint8
+    cfo: torch.Tensor        # (K,) float32
+    time_offset: torch.Tensor   # (K,) float32
+    n_err: torch.Tensor      # (K,) int32 FEC-corrected codewords
+    n_candidates: torch.Tensor  # () int32 sync starts owned by this chunk
+    n_dropped: torch.Tensor     # () int32 owned starts beyond max_packets
+
+
+def stream_frames_init(params: LoraParams, max_payload_len: int,
+                       crc: bool = True, device=None) -> StreamRxState:
+    """Fresh state for ``receive_stream_frames`` (a max-frame-sized tail),
+    on ``device`` as ``stream_rx_init`` places it."""
+    s_max = frame_codec.max_frame_symbols(params, max_payload_len, crc)
+    return stream_rx_init(params, s_max, device=device)
 
 
 def _resolve_wide(params: LoraParams, wide: bool | None) -> bool:
@@ -145,6 +177,54 @@ def _owned_starts(ext_r, ext_i, chunk_len: int, plen: int,
     return starts_c, valid, owned.sum(dtype=torch.int32)
 
 
+def _chunk_front(iq_r, iq_i, params: LoraParams, plen: int, state,
+                 stride: int, power_gate_db: float, max_packets: int,
+                 wide: bool, what: str):
+    """The part both receivers share: check the chunk, scan [tail | chunk],
+    pick the owned starts, extract each packet (``plen`` samples) and
+    demodulate it.  Returns (owned starts clamped for extraction, valid,
+    owned-candidate count, DemodResult, new state)."""
+    if iq_r.ndim != 1:
+        raise InvalidArgumentError(
+            f"the streaming receivers take one stream, float32 (L,) planes; "
+            f"got shape {tuple(iq_r.shape)}")
+    chunk_len = iq_r.shape[-1]
+    if chunk_len % stride:
+        raise ValueError(f"chunk length {chunk_len} not a multiple of "
+                         f"stride {stride}")
+    if plen % stride:
+        raise ValueError(f"{what} {plen} not a multiple of stride {stride}")
+
+    # extended stream: [prev tail | chunk]; ext position p <-> global
+    # sample g = p + offset - plen
+    ext_r = torch.cat([state.tail_r, iq_r])
+    ext_i = torch.cat([state.tail_i, iq_i])
+
+    starts_c, valid, n_candidates = _owned_starts(
+        ext_r, ext_i, chunk_len, plen, params, stride, power_gate_db,
+        max_packets, dedupe_tol=max(2, params.osr) if wide else 2,
+        max_mis=_wide_max_mis(params, stride) if wide else None)
+
+    # each packet is a row of the overlapping (ext_len - plen + 1, plen)
+    # view of the stream: one gather of K * plen samples
+    pkt_r = ext_r.unfold(0, plen, 1).index_select(0, starts_c)
+    pkt_i = ext_i.unfold(0, plen, 1).index_select(0, starts_c)
+    dr, di = dechirp(pkt_r, pkt_i, params)
+    res = (demodulate_wide if wide else demodulate_tones)(dr, di, params)
+    new_state = StreamRxState(
+        tail_r=ext_r[chunk_len:].clone(),            # last plen samples
+        tail_i=ext_i[chunk_len:].clone(),
+        offset=state.offset + chunk_len,
+    )
+    return starts_c, valid, n_candidates, res, new_state
+
+
+def _masked(valid, x):
+    """``x`` where the entry holds a real packet, else zero."""
+    mask = valid.reshape(valid.shape + (1,) * (x.ndim - 1))
+    return torch.where(mask, x, torch.zeros_like(x))
+
+
 def receive_stream(iq_r, iq_i, params: LoraParams, *,
                    payload_symbols: int, max_packets: int,
                    state: StreamRxState | None = None,
@@ -178,56 +258,78 @@ def receive_stream(iq_r, iq_i, params: LoraParams, *,
     wide = _resolve_wide(params, wide)
     if stride is None:
         stride = _default_stride(params, wide)
-    if iq_r.ndim != 1:
-        raise InvalidArgumentError(
-            f"receive_stream takes one stream, float32 (L,) planes; got "
-            f"shape {tuple(iq_r.shape)}")
-    chunk_len = iq_r.shape[-1]
-    if chunk_len % stride:
-        raise ValueError(f"chunk length {chunk_len} not a multiple of "
-                         f"stride {stride}")
     plen = packet_samples(params, payload_symbols)
-    if plen % stride:
-        raise ValueError(f"packet length {plen} not a multiple of "
-                         f"stride {stride}")
     if state is None:
         state = stream_rx_init(params, payload_symbols, device=iq_r.device)
-
-    # extended stream: [prev tail | chunk]; ext position p <-> global
-    # sample g = p + offset - plen
-    ext_r = torch.cat([state.tail_r, iq_r])
-    ext_i = torch.cat([state.tail_i, iq_i])
-
-    starts_c, valid, n_candidates = _owned_starts(
-        ext_r, ext_i, chunk_len, plen, params, stride, power_gate_db,
-        max_packets, dedupe_tol=max(2, params.osr) if wide else 2,
-        max_mis=_wide_max_mis(params, stride) if wide else None)
-
-    # each packet is a row of the overlapping (ext_len - plen + 1, plen)
-    # view of the stream: one gather of K * plen samples
-    pkt_r = ext_r.unfold(0, plen, 1).index_select(0, starts_c)
-    pkt_i = ext_i.unfold(0, plen, 1).index_select(0, starts_c)
-    dr, di = dechirp(pkt_r, pkt_i, params)
-    res = (demodulate_wide if wide else demodulate_tones)(dr, di, params)
+    starts_c, valid, n_candidates, res, new_state = _chunk_front(
+        iq_r, iq_i, params, plen, state, stride, power_gate_db,
+        max_packets, wide, "packet length")
     payload, crc_ok = decode(res.symbols)
-
     packets = RecoveredPackets(
-        payload=torch.where(valid[:, None], payload,
-                            torch.zeros_like(payload)),
+        payload=_masked(valid, payload),
         crc_ok=crc_ok & valid,
         valid=valid,
         start=starts_c + state.offset - plen,
-        sync_word=torch.where(valid, res.sync_word,
-                              torch.zeros_like(res.sync_word)),
-        cfo=torch.where(valid, res.cfo, torch.zeros_like(res.cfo)),
-        time_offset=torch.where(valid, res.time_offset,
-                                torch.zeros_like(res.time_offset)),
+        sync_word=_masked(valid, res.sync_word),
+        cfo=_masked(valid, res.cfo),
+        time_offset=_masked(valid, res.time_offset),
         n_candidates=n_candidates,
         n_dropped=torch.clamp(n_candidates - max_packets, min=0),
     )
-    new_state = StreamRxState(
-        tail_r=ext_r[chunk_len:].clone(),            # last plen samples
-        tail_i=ext_i[chunk_len:].clone(),
-        offset=state.offset + chunk_len,
-    )
     return packets, new_state
+
+
+def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
+                          max_payload_len: int, max_packets: int,
+                          crc: bool = True,
+                          state: StreamRxState | None = None,
+                          stride: int | None = None,
+                          power_gate_db: float = 5.0,
+                          wide: bool | None = None,
+                          ) -> tuple[RecoveredFrames, StreamRxState]:
+    """Header-driven variable-length streaming RX.
+
+    ``receive_stream`` needs the caller to fix ``payload_symbols``, so it
+    cannot receive a real mixed-length stream.  This entry point decodes
+    the explicit header of every detected packet (``models/frame.py``) and
+    recovers its advertised length, up to the bound ``max_payload_len``;
+    one call serves every length.
+
+    Ownership treats every packet as maximum-length: a start is owned by
+    the chunk in which its *maximal* frame window completes, so a frame's
+    recovery may land one chunk later than its last symbol, but no frame is
+    lost or duplicated whatever the chunking.  Oversize frames (a header
+    advertising > max_payload_len) surface with ``hdr_ok == False``.  The
+    other arguments are ``receive_stream``'s.
+
+    Returns (RecoveredFrames, new state): state from
+    ``stream_frames_init`` (or None at stream start).
+    """
+    wide = _resolve_wide(params, wide)
+    if stride is None:
+        stride = _default_stride(params, wide)
+    s_max = frame_codec.max_frame_symbols(params, max_payload_len, crc)
+    plen = packet_samples(params, s_max)
+    if state is None:
+        state = stream_frames_init(params, max_payload_len, crc,
+                                   device=iq_r.device)
+    starts_c, valid, n_candidates, res, new_state = _chunk_front(
+        iq_r, iq_i, params, plen, state, stride, power_gate_db,
+        max_packets, wide, "max frame length")
+    dec = frame_codec.decode_frame_padded(res.symbols, params,
+                                          max_payload_len, crc)
+    frames = RecoveredFrames(
+        payload=_masked(valid, dec.payload),
+        length=_masked(valid, dec.length),
+        hdr_ok=dec.hdr_ok & valid,
+        crc_ok=dec.crc_ok & valid,
+        valid=valid,
+        start=starts_c + state.offset - plen,
+        sync_word=_masked(valid, res.sync_word),
+        cfo=_masked(valid, res.cfo),
+        time_offset=_masked(valid, res.time_offset),
+        n_err=_masked(valid, dec.n_err),
+        n_candidates=n_candidates,
+        n_dropped=torch.clamp(n_candidates - max_packets, min=0),
+    )
+    return frames, new_state

@@ -24,6 +24,7 @@ import torch
 from ..ops.chirp import downchirp_ri
 from ..ops.cuda_stream import stream_window_detect
 from ..utils.config import LoraParams
+from ..utils.errors import InvalidArgumentError
 
 __all__ = ["StreamScan", "stream_scan", "find_sync_starts",
            "find_packet_starts"]
@@ -82,15 +83,28 @@ def _stride_windows(ext, total: int, step: int, stride: int, n: int,
     return all_w[..., :windows, :]
 
 
-def stream_scan(iq_r, iq_i, params: LoraParams,
-                stride: int | None = None) -> StreamScan:
+def stream_scan(iq_r, iq_i, params: LoraParams, *,
+                stride: int | None = None,
+                backend: str = "auto") -> StreamScan:
     """Dechirp-detect every ``stride``-aligned window of a continuous stream.
 
     ``stride`` defaults to a full symbol; a sub-symbol stride (e.g. step//2)
     finds packets at arbitrary half-symbol alignments.  The stream length
     must be a multiple of ``stride``; the windows that start in the stream
     and run past its end read zeros.  Leading axes are independent streams.
+
+    ``stride`` and ``backend`` are keyword-only: the JAX package's fourth
+    and fifth positional arguments are ``mesh``/``axis``, which the port
+    does not take yet.  ``backend`` takes the JAX package's kernel values,
+    ``"auto"`` and ``"pallas"`` (the scan kernel on a CUDA tensor, its plain
+    version on a CPU tensor); any other value raises, since a CPU tensor is
+    the plain route and there is no ``"jnp"`` one.
     """
+    if backend not in ("auto", "pallas"):
+        raise InvalidArgumentError(
+            f"backend {backend!r}: the port's stream scan routes are 'auto' "
+            "and 'pallas' (the scan kernel); a CPU tensor runs its plain "
+            "version, so there is no 'jnp' route")
     step = params.step
     if stride is None:
         stride = step

@@ -10,15 +10,54 @@ Host data (numpy arrays, lists) handed to an entry point goes to the CUDA
 card: the port runs on the card unless the caller asks for the CPU, with a
 CPU tensor or an explicit ``device="cpu"``.  Without a card, host data
 raises instead of running on the CPU (``host_device``).
+
+The float32 matrix products of the port (the DFTs of ``ops/dft.py``, which
+the estimator and every plain version run) must not run in TF32, which
+keeps about three decimal digits: enough to move a CFO, a timing estimate
+or a detection.  ``full_float32`` runs them in full float32 whatever the
+caller's switch is, and gives the switch back as it found it.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 
-__all__ = ["device_table", "host_device", "int_tensor"]
+from .errors import InvalidArgumentError
+
+__all__ = ["device_table", "host_device", "int_tensor", "full_float32"]
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Run the float32 matmuls inside in full float32 (no TF32).
+
+    The switch is ``torch.backends.cuda.matmul.allow_tf32``, which
+    ``torch.get_float32_matmul_precision()`` reflects ("highest" means
+    off).  When it is on, this sets "highest" and restores the caller's
+    precision in a ``finally``.  Raises ``InvalidArgumentError`` when the
+    caller set TF32 through the per-backend ``fp32_precision`` API alone,
+    where torch refuses to read the switch at all: the products cannot be
+    pinned without changing the caller's settings behind its back.  Not
+    thread-safe while the caller's TF32 is on (the switch is global)."""
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError as e:
+        raise InvalidArgumentError(
+            "cannot pin full float32 matmuls: torch reports a mix of its "
+            "legacy and per-backend TF32 settings; set TF32 through "
+            "torch.set_float32_matmul_precision or "
+            "torch.backends.cuda.matmul.allow_tf32") from e
+    if saved == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 @functools.lru_cache(maxsize=None)

@@ -637,3 +637,108 @@ def test_receive_stream_on_card_matches_cpu(cuda_device):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
     assert gpu.start[gpu.valid].tolist() == offsets
     assert torch.equal(gpu.payload[:5].cpu(), torch.as_tensor(pay))
+
+
+@pytest.mark.parametrize("rdd", [1, 2, 3, 4])
+@pytest.mark.parametrize("sf", [7, 8, 9, 10, 11, 12])
+def test_framed_roundtrip_on_card_matches_cpu(cuda_device, sf, rdd):
+    """``encode_frame -> modulate_dechirped -> demodulate_tones ->
+    decode_frame_padded`` on the card (TX and RX kernels) gives the CPU
+    plain path's symbols and FrameResult, mixed lengths 1-12 at
+    ``max_payload_len`` 12, and every payload back."""
+    p = T.LoraParams(sf=sf, cr=f"4/{4 + rdd}")
+    rng = np.random.default_rng(sf * 10 + rdd)
+    lengths = rng.integers(1, 13, 8)
+    pays = [rng.integers(0, 256, n).astype(np.uint8) for n in lengths]
+    s_max = T.max_frame_symbols(p, 12)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        rows = []
+        for pay in pays:
+            s = T.encode_frame(torch.as_tensor(pay, device=dev)[None], p)
+            rows.append(torch.nn.functional.pad(s, (0, s_max - s.shape[-1])))
+        syms = torch.cat(rows)
+        dr, di = T.modulate_dechirped(syms, p)
+        res = T.demodulate_tones(dr, di, p)
+        out.append((syms, res.symbols,
+                    T.decode_frame_padded(res.symbols, p, 12)))
+    (gs, gsym, gfr), (cs, csym, cfr) = out
+    assert torch.equal(gs.cpu(), cs) and torch.equal(gsym.cpu(), csym)
+    for f in gfr._fields:
+        assert torch.equal(getattr(gfr, f).cpu(), getattr(cfr, f)), f
+    assert cfr.hdr_ok.all() and cfr.crc_ok.all()
+    assert cfr.length.tolist() == lengths.tolist()
+    for k, pay in enumerate(pays):
+        assert cfr.payload[k, :len(pay)].tolist() == pay.tolist()
+
+
+def test_receive_stream_frames_on_card_matches_cpu(cuda_device):
+    """The framed streaming receiver through #7 and the RX kernels recovers
+    what the CPU plain path recovers, mixed lengths at any offset."""
+    p = T.LoraParams(sf=7, cr="4/8")
+    rng = np.random.default_rng(6)
+    sr = rng.standard_normal(49152).astype(np.float32) * 0.05
+    si = rng.standard_normal(49152).astype(np.float32) * 0.05
+    offsets = [1000, 9000, 17003, 30011]
+    pays = [rng.integers(0, 256, n).astype(np.uint8) for n in (3, 16, 9, 1)]
+    for g, pay in zip(offsets, pays):
+        re, im = T.modulate(T.encode_frame(torch.as_tensor(pay)[None], p), p)
+        sr[g:g + re.shape[-1]] += re[0].numpy()
+        si[g:g + re.shape[-1]] += im[0].numpy()
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        fr, _ = T.receive_stream_frames(torch.as_tensor(sr, device=dev),
+                                        torch.as_tensor(si, device=dev), p,
+                                        max_payload_len=16, max_packets=8)
+        out.append(fr)
+    gpu, cpu = out
+    for f in ("payload", "length", "hdr_ok", "crc_ok", "valid", "start",
+              "sync_word", "n_err", "n_candidates", "n_dropped"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    good = (cpu.valid & cpu.crc_ok).numpy()
+    assert cpu.start.numpy()[good].tolist() == offsets
+    for k, pay in zip(np.nonzero(good)[0], pays):
+        assert cpu.payload[k, :len(pay)].tolist() == pay.tolist()
+
+
+def _tf32_run(cuda_device):
+    outs = []
+    for path in FIXTURES:
+        d = np.load(path)
+        p = T.LoraParams(sf=int(d["sf"]), bw=int(d["bw"]), osr=int(d["osr"]),
+                         window=str(d["window"]))
+        rr, ri = T.from_complex(d["iq"][None], device=cuda_device)
+        outs.append(T.demodulate(rr, ri, p))
+    p = T.LoraParams(sf=12)
+    pay = np.random.default_rng(12).integers(0, 256, (64, 16)).astype(
+        np.uint8)
+    re, im = T.modulate(T.encode(torch.as_tensor(pay, device=cuda_device)), p)
+    outs.append(T.demodulate(re, im, p))
+    return [tuple(t.cpu() for t in (r.symbols, r.sync_word, r.cfo,
+                                    r.time_offset)) for r in outs]
+
+
+@pytest.mark.parametrize("how", ["allow_tf32", "precision"])
+def test_tf32_switch_changes_nothing_and_is_restored(cuda_device, how):
+    """With the caller's TF32 on, the eight C-reference fixtures and a
+    64-packet sf12 slice through ``demodulate`` (estimator and RX kernels)
+    give exactly what they give with it off: symbols, sync words, CFO and
+    timing identical; the caller's switch is as it was afterwards."""
+    assert len(FIXTURES) == 8
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = _tf32_run(cuda_device)
+        if how == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = _tf32_run(cuda_device)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+    assert sum(int(s[0].numel()) for s in got) > 0

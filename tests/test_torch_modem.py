@@ -545,3 +545,67 @@ def test_demodulate_error_contract():
     with pytest.raises(jerrors.RangeError, match="cap"):
         J.demodulate(jnp.zeros((1, 5 * jp.n)), jnp.zeros((1, 5 * jp.n)), jp,
                      symbol_cap=2)
+
+
+@pytest.mark.parametrize("sf,nan_symbol", [(7, 4), (9, 0), (12, 3)])
+def test_nan_window_gives_the_first_nan_bin_like_jax(sf, nan_symbol):
+    """One NaN sample in one data symbol's window: every bin of that window
+    is NaN, and the port's plain ``demodulate_tones`` and JAX's jnp route
+    both give its first NaN bin, bin 0 (``ops/cuda_rx.py``'s non-finite
+    rule); the other symbols, the sync word and the estimate are
+    untouched, and the window's power is NaN in both."""
+    jp, tp = J.LoraParams(sf=sf), T.LoraParams(sf=sf)
+    pay = np.random.default_rng(sf).integers(0, 256, (2, 6)).astype(np.uint8)
+    dr, di = (np.asarray(a) for a in J.modulate_dechirped(J.encode(pay), jp))
+    dr, di = dr.copy(), di.copy()
+    where = (2 + nan_symbol) * jp.n + jp.n // 3
+    dr[1, where] = np.nan
+    jres = J.demodulate_tones(jnp.asarray(dr), jnp.asarray(di), jp,
+                              backend="jnp")
+    tres = T.demodulate_tones(torch.as_tensor(dr), torch.as_tensor(di), tp)
+    np.testing.assert_array_equal(tres.symbols.numpy(),
+                                  np.asarray(jres.symbols))
+    assert int(tres.symbols[1, nan_symbol]) == 0
+    clean = np.asarray(J.encode(pay)).astype(np.int64) % jp.n
+    keep = np.ones(clean.shape[-1], bool)
+    keep[nan_symbol] = False
+    np.testing.assert_array_equal(tres.symbols.numpy()[:, keep],
+                                  clean[:, keep])
+    np.testing.assert_array_equal(tres.sync_word.numpy(),
+                                  np.asarray(jres.sync_word))
+    np.testing.assert_allclose(tres.cfo.numpy(), np.asarray(jres.cfo),
+                               atol=1e-5, rtol=0)
+    assert np.isnan(tres.power.numpy()[1, 2 + nan_symbol])
+    assert np.isnan(np.asarray(jres.power)[1, 2 + nan_symbol])
+
+
+def test_full_float32_pins_and_restores_the_callers_switch():
+    """``utils/tensors.py::full_float32`` runs its body at "highest"
+    whatever the caller set, and gives the caller's precision back, also
+    when the body raises; the DFT under it gives the same bins as with the
+    switch off."""
+    from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.dft \
+        import dft_ri
+    from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.tensors \
+        import full_float32
+    saved = torch.get_float32_matmul_precision()
+    z = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (2, 3, 256)).astype(np.float32))
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = dft_ri(z[0], z[1])
+        for setting in ("high", "medium"):
+            torch.set_float32_matmul_precision(setting)
+            with full_float32():
+                assert torch.get_float32_matmul_precision() == "highest"
+            assert torch.get_float32_matmul_precision() == setting
+            with pytest.raises(ZeroDivisionError):
+                with full_float32():
+                    1 / 0
+            assert torch.get_float32_matmul_precision() == setting
+            got = dft_ri(z[0], z[1])
+            assert torch.get_float32_matmul_precision() == setting
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    finally:
+        torch.set_float32_matmul_precision(saved)

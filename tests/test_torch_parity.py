@@ -288,6 +288,12 @@ def test_port_import_loads_no_jax_module():
             f"import {PORT}.ops.cuda_tx, {PORT}.ops.cuda_rx\n"
             f"import {PORT}.ops.cuda_stream, {PORT}.ops.cuda_detect\n"
             f"import {PORT}.parallel.streaming, {PORT}.parallel.receiver\n"
+            f"import {PORT}.models.frame, {PORT}.models.sweep\n"
+            f"import {PORT}.models.lorawan, {PORT}.ops.channel\n"
+            f"import {PORT}.ops.codes, {PORT}.utils.native\n"
+            f"import {PORT}.runners.tx, {PORT}.runners.rx\n"
+            f"import {PORT}.runners.stream_rx, {PORT}.runners.awgn_sweep\n"
+            f"import {PORT}.runners.lorawan_roundtrip\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib') or m.startswith('"
             "lora_sdr_lightweight_standalone_library_clean_tpu.')]\n"
@@ -305,6 +311,11 @@ def test_public_names():
                  "OffsetEstimate", "demodulate_tones", "demodulate",
                  "compensate_offsets", "demodulate_wide", "streaming",
                  "receive_stream", "stream_rx_init", "packet_samples",
-                 "StreamRxState", "RecoveredPackets"):
+                 "StreamRxState", "RecoveredPackets", "lorawan", "sweep",
+                 "channel", "encode_frame", "decode_frame",
+                 "decode_frame_padded", "decode_header", "frame_symbols",
+                 "max_frame_symbols", "FrameHeader", "FrameResult",
+                 "receive_stream_frames", "stream_frames_init",
+                 "RecoveredFrames"):
         assert hasattr(T, name), name
         assert name == "params_from_reference" or hasattr(J, name), name

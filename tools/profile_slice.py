@@ -5,7 +5,7 @@ Run from the root of a checkout:
 
     python3 tools/profile_slice.py [--sf 7] [--bw 125000] [--osr 1]
                                    [--packets 8192] [--iters 5] [--out PATH]
-                                   [--stream] [--sass]
+                                   [--stream] [--framed] [--sass]
 
 It runs ``encode -> modulate_dechirped -> demodulate_tones -> decode`` at
 the given sf, bandwidth and oversampling, CR4-5, on random 32-byte payloads
@@ -20,8 +20,15 @@ continuous stream, ``receive_stream`` in one call; ``--stream --packets
 8192`` is S7, ``--stream --sf 12 --packets 256`` S12, ``--stream --sf 9
 --bw 250000 --osr 2 --packets 1024`` SW), in the stages of
 ``receive_stream``: stream scan (kernel #7), start finding, selection of
-the owned starts, extraction, dechirp, demodulation, decode.  It reports,
-all from one process:
+the owned starts, extraction, dechirp, demodulation, decode.  With
+``--framed`` the packets are SX1272 frames: the slice is ``encode_frame ->
+modulate_dechirped -> demodulate_tones -> decode_frame_padded`` on 32-byte
+frames (``--framed --packets 8192`` is ``chip_smoke.py``'s sf7 framed
+slice), and ``--stream --framed`` profiles ``receive_stream_frames`` on
+``chip_smoke.py``'s framed stream of that many frames of lengths 1-32
+(``--stream --framed --packets 8192 --power-gate-db 4`` is F7), with
+``max_packets`` twice the frame count as there.  It reports, all from one
+process:
 
 - wall ms per iteration: CUDA events over ``--iters`` iterations after a
   warm-up, without the profiler;
@@ -122,13 +129,14 @@ def _wide(p) -> bool:
     return p.bw_scale > 1 and p.osr >= p.bw_scale
 
 
-def _stages(payload, p):
+def _stages(payload, p, framed: bool):
     """The slice as (name, thunk) pairs, each thunk feeding the next."""
     state = {}
     demod = lora.demodulate_wide if _wide(p) else lora.demodulate_tones
 
     def enc():
-        state["syms"] = lora.encode(payload)
+        state["syms"] = (lora.encode_frame(payload, p) if framed
+                         else lora.encode(payload))
 
     def mod():
         state["iq"] = lora.modulate_dechirped(state["syms"], p)
@@ -137,22 +145,30 @@ def _stages(payload, p):
         state["res"] = demod(*state["iq"], p)
 
     def dec():
-        state["dec"], state["ok"] = lora.decode(state["res"].symbols)
+        if framed:
+            fr = lora.decode_frame_padded(state["res"].symbols, p, PAYLOAD)
+            state["dec"], state["ok"] = fr.payload, fr.crc_ok
+        else:
+            state["dec"], state["ok"] = lora.decode(state["res"].symbols)
 
-    return state, [("encode", enc), ("modulate_dechirped", mod),
-                   (demod.__name__, dem), ("decode", dec)]
+    return state, [("encode_frame" if framed else "encode", enc),
+                   ("modulate_dechirped", mod), (demod.__name__, dem),
+                   ("decode_frame_padded" if framed else "decode", dec)]
 
 
-def _stream_stages(sr, si, p, count, gate):
-    """``receive_stream``'s stages in its order (one call, no carried
-    state), each thunk feeding the next."""
+def _stream_stages(sr, si, p, count, gate, framed: bool):
+    """``receive_stream``'s (``receive_stream_frames``'s) stages in its
+    order (one call, no carried state), each thunk feeding the next."""
     state = {}
     wide = receiver._resolve_wide(p, None)
     stride = receiver._default_stride(p, wide)
-    plen = lora.packet_samples(p, 2 * PAYLOAD)
+    symbols = (lora.max_frame_symbols(p, PAYLOAD) if framed
+               else 2 * PAYLOAD)
+    plen = lora.packet_samples(p, symbols)
     chunk_len = sr.shape[-1]
     demod = lora.demodulate_wide if wide else lora.demodulate_tones
-    init = lora.stream_rx_init(p, 2 * PAYLOAD, device=sr.device)
+    init = lora.stream_rx_init(p, symbols, device=sr.device)
+    slots = 2 * count if framed else count
 
     def scan():
         state["ext"] = (torch.cat([init.tail_r, sr]),
@@ -171,7 +187,7 @@ def _stream_stages(sr, si, p, count, gate):
                  & (state["start"] <= chunk_len))
         sentinel = plen + chunk_len + 1
         cand = torch.where(owned, state["start"], sentinel)
-        first = torch.topk(cand, count, largest=False, sorted=True).values
+        first = torch.topk(cand, slots, largest=False, sorted=True).values
         state["valid"] = first < sentinel
         state["at"] = torch.clamp(torch.where(state["valid"], first, 0), 0,
                                   chunk_len)
@@ -187,12 +203,16 @@ def _stream_stages(sr, si, p, count, gate):
         state["res"] = demod(*state["iq"], p)
 
     def dec():
-        state["dec"], state["ok"] = lora.decode(state["res"].symbols)
+        if framed:
+            state["frames"] = lora.decode_frame_padded(
+                state["res"].symbols, p, PAYLOAD)
+        else:
+            state["dec"], state["ok"] = lora.decode(state["res"].symbols)
 
     return state, [("stream_scan", scan), ("find_packet_starts", starts),
                    ("select owned starts", select), ("extract", extract),
                    ("dechirp", dechirp), (demod.__name__, dem),
-                   ("decode", dec)]
+                   ("decode_frame_padded" if framed else "decode", dec)]
 
 
 def _wall_ms(run, iters: int) -> float:
@@ -235,6 +255,10 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true",
                     help="profile receive_stream on chip_smoke.py's stream "
                          "slice of --packets packets")
+    ap.add_argument("--framed", action="store_true",
+                    help="SX1272 frames: encode_frame/decode_frame_padded, "
+                         "or with --stream receive_stream_frames on "
+                         "chip_smoke.py's framed stream")
     ap.add_argument("--power-gate-db", type=float, default=5.0,
                     help="receive_stream's sync gate (chip_smoke.py's S7 "
                          "and S12 pass 4)")
@@ -249,18 +273,26 @@ def main() -> int:
     p = lora.LoraParams(sf=args.sf, bw=args.bw, osr=args.osr, cr="4/5")
     rng = np.random.default_rng(args.seed)
     if args.stream:
-        from chip_smoke import _stream_slice
-        sr, si, payload, _, planted = _stream_slice(p, args.packets, rng, dev)
+        from chip_smoke import _frame_stream, _stream_slice
+        if args.framed:
+            sr, si, payload, lengths, planted = _frame_stream(
+                p, args.packets, rng, dev)
+        else:
+            sr, si, payload, _, planted = _stream_slice(p, args.packets,
+                                                        rng, dev)
         state, stages = _stream_stages(sr, si, p, args.packets,
-                                       args.power_gate_db)
-        what = (f"receive_stream on one stream of {sr.shape[-1]:,} samples "
-                f"({args.packets} packets, gate {args.power_gate_db} dB)")
+                                       args.power_gate_db, args.framed)
+        what = (f"receive_stream{'_frames' if args.framed else ''} on one "
+                f"stream of {sr.shape[-1]:,} samples ({args.packets} "
+                f"{'frames' if args.framed else 'packets'}, gate "
+                f"{args.power_gate_db} dB)")
     else:
         payload = torch.as_tensor(
             rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
             device=dev)
-        state, stages = _stages(payload, p)
-        what = f"{stages[2][0]}, {args.packets} packets x {PAYLOAD} B"
+        state, stages = _stages(payload, p, args.framed)
+        what = (f"{stages[2][0]}, {args.packets} "
+                f"{'frames' if args.framed else 'packets'} x {PAYLOAD} B")
 
     def run():
         for _, fn in stages:
@@ -269,7 +301,14 @@ def main() -> int:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
-    if args.stream:
+    if args.stream and args.framed:
+        plen = lora.packet_samples(p, lora.max_frame_symbols(p, PAYLOAD))
+        fr, at = state["frames"], state["at"] - plen
+        rows = torch.searchsorted(at[state["valid"]], planted)
+        assert torch.equal(at[rows], planted), "starts"
+        assert torch.equal(fr.payload[rows], payload), \
+            "the stream did not decode"
+    elif args.stream:
         assert bool(state["valid"].all()), "the stream lost packets"
         plen = lora.packet_samples(p, 2 * PAYLOAD)
         assert torch.equal(state["at"] - plen, planted), "starts"
@@ -332,7 +371,8 @@ def main() -> int:
             lines.append(f"  {label}: {counts[label]}")
     report = "\n".join(lines)
     print(report)
-    kind = "stream_" if args.stream else ""
+    kind = ("stream_" if args.stream else "") + \
+        ("framed_" if args.framed else "")
     out = Path(args.out or f"build/profile_{kind}sf{args.sf}_bw"
                f"{args.bw // 1000}_osr{args.osr}.txt")
     out.parent.mkdir(parents=True, exist_ok=True)

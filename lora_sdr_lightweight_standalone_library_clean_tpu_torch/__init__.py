@@ -24,8 +24,14 @@ interleave, Gray) rides the same kernels, and ``receive_stream_frames``
 receives streams of frames of mixed lengths.  ``ops/channel.py`` and
 ``models/sweep.py`` give the AWGN BER/PER sweep, ``models/lorawan.py`` the
 LoRaWAN MAC (host AES/CMAC through ``utils/native.py``), and ``runners/``
-the command-line tools (``--device cpu`` for the CPU).  The
-``torch.distributed`` layer (the JAX package's ``mesh``) is still to come.
+the command-line tools, the golden-vector dumper ``vector_dump`` among them
+(``--device cpu`` for the CPU).  The parallel layer runs on
+``torch.distributed``, one rank per device: ``parallel/mesh.py`` and
+``parallel/distributed.py`` build the ('dp', 'sp') and ('host', 'dp',
+'sp') meshes of ranks and place batches on them as DTensors (channel data
+parallelism with no collectives), and ``stream_scan``, ``receive_stream``
+and ``receive_stream_frames`` take a ``mesh``/``axis`` that shards a
+stream's time axis over ``sp`` with halos of the next ranks' samples.
 """
 from .utils.config import (LoraParams, Window, load_profiles,
                            params_from_profile, params_from_reference,
@@ -43,7 +49,7 @@ from .models.frame import (
     frame_symbols, max_frame_symbols, FrameHeader, FrameResult,
 )
 from .ops import channel
-from .parallel import streaming
+from .parallel import mesh, streaming
 from .parallel.receiver import (
     receive_stream, receive_stream_frames, stream_rx_init,
     stream_frames_init, packet_samples, StreamRxState,

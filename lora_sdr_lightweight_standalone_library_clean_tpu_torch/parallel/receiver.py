@@ -30,16 +30,34 @@ taken at its maximal frame length, then ``models/frame.py::
 decode_frame_padded`` reads each frame's explicit header and recovers its
 advertised length, up to ``max_payload_len``.
 
+**Shard boundaries.**  With a mesh, a chunk is a DTensor whose time axis
+is sharded over the mesh axis ``axis`` (``sp``); rank 0 of that axis
+prepends the carried tail, so each rank holds one block of [tail | chunk].
+Each rank scans the windows that start in its block (``parallel/
+streaming.py``; the windows that cross its right edge read the next
+ranks' leading samples), and the scan's three outputs, 12 B a window, are
+gathered over ``axis``, so every rank picks the same owned starts from the
+same global detections, exactly as on one device.  Each rank then
+extracts, demodulates and decodes only the packets whose start lies in its
+block, reading up to ``plen - 1`` samples past it from the next ranks'
+leading ``min(plen, block)`` samples (so a block shorter than a packet
+works), and only the decoded fields go back into the K slots (an
+all_reduce over ``axis``): no rank gathers the stream or the packet
+bodies.  Every rank returns the one-device result, and the new state's
+tail, gathered from the ranks that hold the last ``plen`` samples, is the
+same on every rank.  Three collectives a chunk, whose bytes
+``streaming.COLLECTIVE_BYTES`` counts.
+
 The JAX package counts samples in int32 (its offset wraps after 2^31
-samples, about 4.8 hours at 125 kHz); the port counts them in int64.  The
-JAX package's ``mesh``/``axis`` sharding of the scan waits for the port's
-``torch.distributed`` layer.
+samples, about 4.8 hours at 125 kHz); the port counts them in int64.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models import frame as frame_codec
 from ..models.modem import decode, dechirp, demodulate_wide
@@ -47,7 +65,10 @@ from ..models.tones import demodulate_tones
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
 from ..utils.tensors import host_device
-from .streaming import find_packet_starts, stream_scan
+from ..ops.cuda_stream import stream_window_detect
+from .streaming import (StreamScan, _all_gather, all_reduce, axis_size,
+                        find_packet_starts, following, local_block,
+                        stream_scan)
 
 __all__ = ["StreamRxState", "RecoveredPackets", "RecoveredFrames",
            "stream_rx_init", "stream_frames_init",
@@ -150,21 +171,88 @@ def _wide_max_mis(params: LoraParams, stride: int) -> int:
     return stride // 2 + max(8, 4 * params.osr // params.bw_scale)
 
 
-def _owned_starts(ext_r, ext_i, chunk_len: int, plen: int,
-                  params: LoraParams, stride: int, power_gate_db: float,
+class _Ext(NamedTuple):
+    """This rank's part of the extended stream [tail | chunk]."""
+
+    r: torch.Tensor      # its samples, then the samples that follow them
+    i: torch.Tensor
+    lo: int              # ext position of its first sample
+    owned: int           # the samples it owns, r[:owned]
+
+
+def _extend(iq_r, iq_i, state, plen: int, mesh, axis: str):
+    """[tail | chunk] as this rank holds it, and the new state's tail planes
+    (the last ``plen`` samples of [tail | chunk]).
+
+    One device: the whole of it.  With a mesh: this rank's block (rank 0 of
+    ``axis`` prepends the tail), followed by the next ranks' leading
+    ``plen`` samples; one all_gather of every block's leading and trailing
+    ``min(plen, block)`` samples gives both those and the new tail."""
+    if mesh is None:
+        ext_r = torch.cat([state.tail_r, iq_r])
+        ext_i = torch.cat([state.tail_i, iq_i])
+        n = ext_r.shape[-1]
+        return (_Ext(ext_r, ext_i, 0, n), ext_r[n - plen:].clone(),
+                ext_i[n - plen:].clone())
+    br = local_block(iq_r, mesh, axis)
+    bi = local_block(iq_i, mesh, axis)
+    block = br.shape[-1]
+    w = min(plen, block)
+    edges = torch.stack([br[:w], bi[:w], br[block - w:], bi[block - w:]])
+    got = _all_gather(edges, mesh, axis, "halo")
+    me = mesh.get_local_rank(axis)
+    ctx = following([g[:2] for g in got], me, plen)
+    tail = torch.stack([state.tail_r, state.tail_i])
+    new_tail = torch.cat([tail] + [g[2:] for g in got], dim=-1)[:, -plen:]
+    own = torch.stack([br, bi])
+    lo = plen + me * block
+    if me == 0:
+        own, lo = torch.cat([tail, own], dim=-1), 0
+    ext = torch.cat([own, ctx], dim=-1)
+    return (_Ext(ext[0], ext[1], lo, own.shape[-1]), new_tail[0].clone(),
+            new_tail[1].clone())
+
+
+def _gathered_scan(ext: _Ext, plen: int, params: LoraParams, mesh,
+                   axis: str, stride: int) -> StreamScan:
+    """The scan of every window of [tail | chunk] on every rank: each rank
+    scans the windows that start in its block, and the three outputs (12 B
+    a window, bit patterns in int32 words) are all-gathered over ``axis``;
+    rank 0's block is ``plen`` samples longer, so every contribution is
+    padded to its size."""
+    idx, p, pav = stream_window_detect(ext.r, ext.i, params, stride,
+                                       ext.owned // stride)
+    me = mesh.get_local_rank(axis)
+    block = ext.owned - (plen if me == 0 else 0)
+    packed = torch.stack([idx, p.view(torch.int32), pav.view(torch.int32)])
+    packed = torch.nn.functional.pad(
+        packed, (0, (plen + block) // stride - packed.shape[-1]))
+    got = _all_gather(packed, mesh, axis, "scan")
+    full = torch.cat([got[0]] + [g[:, :block // stride] for g in got[1:]],
+                     dim=-1)
+    return StreamScan(full[0], full[1].view(torch.float32),
+                      full[2].view(torch.float32))
+
+
+def _owned_starts(ext: _Ext, chunk_len: int, plen: int, params: LoraParams,
+                  mesh, axis: str, stride: int, power_gate_db: float,
                   max_packets: int, dedupe_tol: int = 2,
                   max_mis: int | None = None):
     """Scan [tail | chunk] and pick this chunk's owned packet starts.
 
     Ownership: corrected starts g with 0 < g <= chunk_len (ext coordinates
     shifted by plen): the packet's last sample arrived in this chunk and
-    not before.  Returns the earliest ``max_packets`` starts ascending
+    not before.  Starts are global ext positions on every rank, whatever
+    the mesh.  Returns the earliest ``max_packets`` starts ascending
     (clamped for extraction), their validity mask, and the owned-candidate
     count.  The sentinel ext_len + 1 fills the places of absent packets; a
     tie between sentinels is harmless.
     """
     ext_len = plen + chunk_len
-    scan = stream_scan(ext_r, ext_i, params, stride=stride)
+    if mesh is None:
+        scan = stream_scan(ext.r, ext.i, params, stride=stride)
+    else:
+        scan = _gathered_scan(ext, plen, params, mesh, axis, stride)
     mask, start = find_packet_starts(scan, params, stride=stride,
                                      power_gate_db=power_gate_db,
                                      dedupe_tol=dedupe_tol, max_mis=max_mis)
@@ -177,46 +265,96 @@ def _owned_starts(ext_r, ext_i, chunk_len: int, plen: int,
     return starts_c, valid, owned.sum(dtype=torch.int32)
 
 
-def _chunk_front(iq_r, iq_i, params: LoraParams, plen: int, state,
-                 stride: int, power_gate_db: float, max_packets: int,
-                 wide: bool, what: str):
+def _into_slots(fields: dict, rows, slots: int, mesh, axis: str) -> dict:
+    """Each rank's decoded fields (rows ``rows`` of the K slots) summed into
+    the K slots over ``axis``.  The rank that owns a packet fills its slot
+    and every other rank leaves it zero, so the sum is exact bit for bit;
+    the fields travel as their bytes, in int32 words, in one all_reduce."""
+    words, layout = [], []
+    for name, x in fields.items():
+        b = x.reshape(x.shape[0], math.prod(x.shape[1:])).contiguous()
+        b = b.view(torch.uint8)
+        nbytes = b.shape[1]
+        b = torch.nn.functional.pad(b, (0, -nbytes % 4)).view(torch.int32)
+        words.append(b)
+        layout.append((name, x.dtype, tuple(x.shape[1:]), nbytes,
+                       b.shape[1]))
+    buf = torch.zeros(slots, sum(b.shape[1] for b in words),
+                      dtype=torch.int32, device=rows.device)
+    buf[rows] = torch.cat(words, dim=1)
+    all_reduce(buf, mesh, axis, "results")
+    out, col = {}, 0
+    for name, dtype, shape, nbytes, width in layout:
+        b = buf[:, col:col + width].contiguous().view(torch.uint8)
+        out[name] = b[:, :nbytes].contiguous().view(dtype).reshape(
+            (slots,) + shape)
+        col += width
+    return out
+
+
+def _demod_owned(ext: _Ext, starts_c, valid, plen: int, params: LoraParams,
+                 wide: bool, mesh, axis: str, finish) -> dict:
+    """Extract the packets this rank owns (every one on one device; with a
+    mesh, the valid ones whose start lies in its block), dechirp and
+    demodulate them, and decode them with ``finish(DemodResult) -> {field:
+    (k, ...) tensor}``.  Returns the fields in the K slots."""
+    if mesh is None:
+        rows, pos = None, starts_c
+    else:
+        mine = valid & (starts_c >= ext.lo) & (starts_c < ext.lo + ext.owned)
+        rows = torch.nonzero(mine).flatten()
+        pos = starts_c[rows] - ext.lo
+    # each packet is a row of the overlapping (len - plen + 1, plen) view
+    # of the samples: one gather of k * plen samples
+    pkt_r = ext.r.unfold(0, plen, 1).index_select(0, pos)
+    pkt_i = ext.i.unfold(0, plen, 1).index_select(0, pos)
+    dr, di = dechirp(pkt_r, pkt_i, params)
+    fields = finish((demodulate_wide if wide else demodulate_tones)(
+        dr, di, params))
+    if mesh is None:
+        return fields
+    return _into_slots(fields, rows, starts_c.shape[0], mesh, axis)
+
+
+def _chunk_front(iq_r, iq_i, params: LoraParams, plen: int, state, mesh,
+                 axis: str, stride: int, power_gate_db: float,
+                 max_packets: int, wide: bool, what: str, finish):
     """The part both receivers share: check the chunk, scan [tail | chunk],
-    pick the owned starts, extract each packet (``plen`` samples) and
-    demodulate it.  Returns (owned starts clamped for extraction, valid,
-    owned-candidate count, DemodResult, new state)."""
+    pick the owned starts, extract each packet (``plen`` samples),
+    demodulate and decode it (``finish``).  Returns (owned starts clamped
+    for extraction, valid, owned-candidate count, decoded fields in the K
+    slots, new state)."""
     if iq_r.ndim != 1:
         raise InvalidArgumentError(
             f"the streaming receivers take one stream, float32 (L,) planes; "
             f"got shape {tuple(iq_r.shape)}")
+    if mesh is None and isinstance(iq_r, DTensor):
+        raise InvalidArgumentError(
+            "a DTensor chunk is received with its mesh: pass mesh=")
     chunk_len = iq_r.shape[-1]
     if chunk_len % stride:
         raise ValueError(f"chunk length {chunk_len} not a multiple of "
                          f"stride {stride}")
     if plen % stride:
         raise ValueError(f"{what} {plen} not a multiple of stride {stride}")
+    if mesh is not None:
+        shards = axis_size(mesh, axis)
+        if chunk_len % (stride * shards):
+            raise ValueError(f"chunk length {chunk_len} not a multiple of "
+                             f"stride*shards ({stride}*{shards})")
 
     # extended stream: [prev tail | chunk]; ext position p <-> global
     # sample g = p + offset - plen
-    ext_r = torch.cat([state.tail_r, iq_r])
-    ext_i = torch.cat([state.tail_i, iq_i])
-
+    ext, tail_r, tail_i = _extend(iq_r, iq_i, state, plen, mesh, axis)
     starts_c, valid, n_candidates = _owned_starts(
-        ext_r, ext_i, chunk_len, plen, params, stride, power_gate_db,
+        ext, chunk_len, plen, params, mesh, axis, stride, power_gate_db,
         max_packets, dedupe_tol=max(2, params.osr) if wide else 2,
         max_mis=_wide_max_mis(params, stride) if wide else None)
-
-    # each packet is a row of the overlapping (ext_len - plen + 1, plen)
-    # view of the stream: one gather of K * plen samples
-    pkt_r = ext_r.unfold(0, plen, 1).index_select(0, starts_c)
-    pkt_i = ext_i.unfold(0, plen, 1).index_select(0, starts_c)
-    dr, di = dechirp(pkt_r, pkt_i, params)
-    res = (demodulate_wide if wide else demodulate_tones)(dr, di, params)
-    new_state = StreamRxState(
-        tail_r=ext_r[chunk_len:].clone(),            # last plen samples
-        tail_i=ext_i[chunk_len:].clone(),
-        offset=state.offset + chunk_len,
-    )
-    return starts_c, valid, n_candidates, res, new_state
+    fields = _demod_owned(ext, starts_c, valid, plen, params, wide, mesh,
+                          axis, finish)
+    new_state = StreamRxState(tail_r=tail_r, tail_i=tail_i,
+                              offset=state.offset + chunk_len)
+    return starts_c, valid, n_candidates, fields, new_state
 
 
 def _masked(valid, x):
@@ -225,9 +363,15 @@ def _masked(valid, x):
     return torch.where(mask, x, torch.zeros_like(x))
 
 
+def _demod_fields(res) -> dict:
+    return {"sync_word": res.sync_word, "cfo": res.cfo,
+            "time_offset": res.time_offset}
+
+
 def receive_stream(iq_r, iq_i, params: LoraParams, *,
                    payload_symbols: int, max_packets: int,
                    state: StreamRxState | None = None,
+                   mesh=None, axis: str = "sp",
                    stride: int | None = None,
                    power_gate_db: float = 5.0,
                    wide: bool | None = None,
@@ -236,12 +380,18 @@ def receive_stream(iq_r, iq_i, params: LoraParams, *,
 
     Args:
       iq_r/iq_i: float32 (L,) tensors, a chunk of the continuous stream; L
-        must be a multiple of ``stride``.  The chunk's device decides the
-        path: a CUDA chunk runs the kernels, a CPU chunk the plain versions.
+        must be a multiple of ``stride`` (and of stride * the ranks of
+        ``axis`` with a mesh).  The chunk's device decides the path: a CUDA
+        chunk runs the kernels, a CPU chunk the plain versions.
       payload_symbols: data symbols per packet.
       max_packets: recovery capacity per chunk.  If more packets complete
         in a chunk, the earliest ``max_packets`` win.
       state: carried state from the previous chunk (None = stream start).
+      mesh/axis: shard the chunk over this axis of a ``DeviceMesh``: the
+        planes are DTensors sharded on their time axis over ``axis``
+        (``parallel/distributed.py::stream_sharding``), every rank of the
+        mesh calls with its own, and every rank returns the one-device
+        result (plain tensors, the same on every rank; the state likewise).
       stride: scan granularity in samples (default: a quarter symbol,
         divided by bw_scale in wide mode).  Packets at arbitrary sample
         offsets are recovered exactly: the sync-bin shift measures the
@@ -261,18 +411,21 @@ def receive_stream(iq_r, iq_i, params: LoraParams, *,
     plen = packet_samples(params, payload_symbols)
     if state is None:
         state = stream_rx_init(params, payload_symbols, device=iq_r.device)
-    starts_c, valid, n_candidates, res, new_state = _chunk_front(
-        iq_r, iq_i, params, plen, state, stride, power_gate_db,
-        max_packets, wide, "packet length")
-    payload, crc_ok = decode(res.symbols)
+
+    def finish(res):
+        payload, crc_ok = decode(res.symbols)
+        return {"payload": payload, "crc_ok": crc_ok, **_demod_fields(res)}
+    starts_c, valid, n_candidates, f, new_state = _chunk_front(
+        iq_r, iq_i, params, plen, state, mesh, axis, stride, power_gate_db,
+        max_packets, wide, "packet length", finish)
     packets = RecoveredPackets(
-        payload=_masked(valid, payload),
-        crc_ok=crc_ok & valid,
+        payload=_masked(valid, f["payload"]),
+        crc_ok=f["crc_ok"] & valid,
         valid=valid,
         start=starts_c + state.offset - plen,
-        sync_word=_masked(valid, res.sync_word),
-        cfo=_masked(valid, res.cfo),
-        time_offset=_masked(valid, res.time_offset),
+        sync_word=_masked(valid, f["sync_word"]),
+        cfo=_masked(valid, f["cfo"]),
+        time_offset=_masked(valid, f["time_offset"]),
         n_candidates=n_candidates,
         n_dropped=torch.clamp(n_candidates - max_packets, min=0),
     )
@@ -283,6 +436,7 @@ def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
                           max_payload_len: int, max_packets: int,
                           crc: bool = True,
                           state: StreamRxState | None = None,
+                          mesh=None, axis: str = "sp",
                           stride: int | None = None,
                           power_gate_db: float = 5.0,
                           wide: bool | None = None,
@@ -300,7 +454,7 @@ def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
     recovery may land one chunk later than its last symbol, but no frame is
     lost or duplicated whatever the chunking.  Oversize frames (a header
     advertising > max_payload_len) surface with ``hdr_ok == False``.  The
-    other arguments are ``receive_stream``'s.
+    other arguments, ``mesh``/``axis`` included, are ``receive_stream``'s.
 
     Returns (RecoveredFrames, new state): state from
     ``stream_frames_init`` (or None at stream start).
@@ -313,22 +467,25 @@ def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
     if state is None:
         state = stream_frames_init(params, max_payload_len, crc,
                                    device=iq_r.device)
-    starts_c, valid, n_candidates, res, new_state = _chunk_front(
-        iq_r, iq_i, params, plen, state, stride, power_gate_db,
-        max_packets, wide, "max frame length")
-    dec = frame_codec.decode_frame_padded(res.symbols, params,
-                                          max_payload_len, crc)
+
+    def finish(res):
+        dec = frame_codec.decode_frame_padded(res.symbols, params,
+                                              max_payload_len, crc)
+        return {**dec._asdict(), **_demod_fields(res)}
+    starts_c, valid, n_candidates, f, new_state = _chunk_front(
+        iq_r, iq_i, params, plen, state, mesh, axis, stride, power_gate_db,
+        max_packets, wide, "max frame length", finish)
     frames = RecoveredFrames(
-        payload=_masked(valid, dec.payload),
-        length=_masked(valid, dec.length),
-        hdr_ok=dec.hdr_ok & valid,
-        crc_ok=dec.crc_ok & valid,
+        payload=_masked(valid, f["payload"]),
+        length=_masked(valid, f["length"]),
+        hdr_ok=f["hdr_ok"] & valid,
+        crc_ok=f["crc_ok"] & valid,
         valid=valid,
         start=starts_c + state.offset - plen,
-        sync_word=_masked(valid, res.sync_word),
-        cfo=_masked(valid, res.cfo),
-        time_offset=_masked(valid, res.time_offset),
-        n_err=_masked(valid, dec.n_err),
+        sync_word=_masked(valid, f["sync_word"]),
+        cfo=_masked(valid, f["cfo"]),
+        time_offset=_masked(valid, f["time_offset"]),
+        n_err=_masked(valid, f["n_err"]),
         n_candidates=n_candidates,
         n_dropped=torch.clamp(n_candidates - max_packets, min=0),
     )

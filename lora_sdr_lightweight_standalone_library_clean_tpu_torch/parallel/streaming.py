@@ -1,18 +1,26 @@
-"""Streaming detection over a continuous IQ stream.
+"""Streaming detection over a continuous IQ stream, on one device or
+sharded over a device mesh.
 
 PyTorch port of ``lora_sdr_lightweight_standalone_library_clean_tpu/
-parallel/streaming.py`` on one device: every ``stride``-aligned window of
-the stream is dechirped and detected (``stream_scan``), and the two sync
-symbols of a packet are recognised in the detections (``find_sync_starts``
-for aligned packets, ``find_packet_starts`` at arbitrary sample offsets).
+parallel/streaming.py``: every ``stride``-aligned window of the stream is
+dechirped and detected (``stream_scan``), and the two sync symbols of a
+packet are recognised in the detections (``find_sync_starts`` for aligned
+packets, ``find_packet_starts`` at arbitrary sample offsets).
 
 The per-window work is ``ops/cuda_stream.py::stream_window_detect``: a
 CUDA tensor launches the streaming-scan kernel (#7), a CPU tensor runs its
 plain version.  The window past the end of the stream reads zeros, which is
 the JAX package's one-device halo of ``step`` zeros (``streaming.py:
-205-209``).  The JAX package's ``mesh``/``axis`` arguments, which shard the
-scan with ``ppermute`` halos, wait for the port's ``torch.distributed``
-layer and are not taken here.
+205-209``).
+
+With a mesh (``parallel/mesh.py``) the stream is a DTensor whose time axis
+is sharded over the mesh axis ``axis``: each rank scans the windows that
+start in its block (deterministic ownership).  The windows that cross the
+block's right edge read a halo of ``step`` samples from the next ranks;
+the last rank reads zeros.  JAX's ``ppermute`` of the halo becomes one
+``all_gather`` of every rank's leading samples over the ``axis`` group,
+from which each rank takes its right neighbours': the one collective that
+runs the same on gloo (CPU or CUDA tensors) and NCCL.
 """
 from __future__ import annotations
 
@@ -20,6 +28,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..ops.chirp import downchirp_ri
 from ..ops.cuda_stream import stream_window_detect
@@ -28,6 +39,13 @@ from ..utils.errors import InvalidArgumentError
 
 __all__ = ["StreamScan", "stream_scan", "find_sync_starts",
            "find_packet_starts"]
+
+# Bytes this rank has put into collectives, by what they carry: "halo" (the
+# leading and trailing samples of its block), "scan" (its windows'
+# detections, gathered before the packet search), "results" (the decoded
+# fields of the packets it owns).  An all_gather counts this rank's
+# contribution, an all_reduce its buffer.
+COLLECTIVE_BYTES = {"halo": 0, "scan": 0, "results": 0}
 
 
 class StreamScan(NamedTuple):
@@ -83,22 +101,88 @@ def _stride_windows(ext, total: int, step: int, stride: int, n: int,
     return all_w[..., :windows, :]
 
 
-def stream_scan(iq_r, iq_i, params: LoraParams, *,
+def _all_gather(x, mesh: DeviceMesh, axis: str, kind: str) -> list:
+    """``dist.all_gather`` of ``x`` over the ranks of ``axis``, in their
+    order; adds the bytes of ``x`` to ``COLLECTIVE_BYTES[kind]``."""
+    out = [torch.empty_like(x)
+           for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(out, x.contiguous(), group=mesh.get_group(axis))
+    COLLECTIVE_BYTES[kind] += x.numel() * x.element_size()
+    return out
+
+
+def all_reduce(x, mesh: DeviceMesh, axis: str, kind: str) -> None:
+    """In-place sum of ``x`` over the ranks of ``axis``; adds its bytes to
+    ``COLLECTIVE_BYTES[kind]``."""
+    axis_size(mesh, axis)
+    dist.all_reduce(x, group=mesh.get_group(axis))
+    COLLECTIVE_BYTES[kind] += x.numel() * x.element_size()
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The ranks on ``axis`` of ``mesh``; raises unless ``mesh`` is a
+    DeviceMesh that has that axis."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(parallel/mesh.py), got {type(mesh).__name__}")
+    if axis not in mesh.mesh_dim_names:
+        raise InvalidArgumentError(
+            f"mesh axes {mesh.mesh_dim_names} have no {axis!r}")
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def local_block(x, mesh: DeviceMesh, axis: str):
+    """This rank's block of a stream DTensor sharded on its last dimension
+    over ``axis`` (and replicated over the other mesh axes); raises on any
+    other layout."""
+    axis_size(mesh, axis)
+    dim = mesh.mesh_dim_names.index(axis)
+    if not isinstance(x, DTensor) or x.device_mesh != mesh:
+        raise InvalidArgumentError(
+            "with a mesh, the stream planes are DTensors on that mesh "
+            "(parallel/distributed.py::make_global_array with "
+            "stream_sharding)")
+    want = [Shard(x.ndim - 1) if d == dim else Replicate()
+            for d in range(mesh.ndim)]
+    if list(x.placements) != want:
+        raise InvalidArgumentError(
+            f"stream placements {tuple(x.placements)}: expected "
+            f"{tuple(want)} (the time axis sharded over {axis!r})")
+    return x.to_local()
+
+
+def following(leads: list, me: int, width: int):
+    """The ``width`` samples after rank ``me``'s block, from every rank's
+    leading samples ``leads`` (in rank order, each (..., w) with w <= its
+    block): the next ranks' concatenated, zeros past the last rank.  A
+    block shorter than ``width`` reads several neighbours."""
+    ctx = torch.cat(leads[me + 1:] + [leads[me][..., :0]],
+                    dim=-1)[..., :width]
+    return torch.nn.functional.pad(ctx, (0, width - ctx.shape[-1]))
+
+
+def stream_scan(iq_r, iq_i, params: LoraParams, mesh=None, axis: str = "sp",
                 stride: int | None = None,
                 backend: str = "auto") -> StreamScan:
     """Dechirp-detect every ``stride``-aligned window of a continuous stream.
 
     ``stride`` defaults to a full symbol; a sub-symbol stride (e.g. step//2)
-    finds packets at arbitrary half-symbol alignments.  The stream length
+    finds packets at arbitrary half-symbol alignments: those windows cross
+    block boundaries, which is what the halo covers.  The stream length
     must be a multiple of ``stride``; the windows that start in the stream
     and run past its end read zeros.  Leading axes are independent streams.
 
-    ``stride`` and ``backend`` are keyword-only: the JAX package's fourth
-    and fifth positional arguments are ``mesh``/``axis``, which the port
-    does not take yet.  ``backend`` takes the JAX package's kernel values,
-    ``"auto"`` and ``"pallas"`` (the scan kernel on a CUDA tensor, its plain
-    version on a CPU tensor); any other value raises, since a CPU tensor is
-    the plain route and there is no ``"jnp"`` one.
+    With a mesh (a ``DeviceMesh``), ``iq_r``/``iq_i`` are DTensors whose
+    last axis is sharded over ``axis``, the number of windows must divide
+    evenly over its ranks (else ``ValueError``), each rank scans the
+    windows that start in its block, and the outputs are DTensors sharded
+    like the input: their ``full_tensor()`` is the one-device scan.
+    Without a mesh, the identical computation on one device.
+
+    ``backend`` takes the JAX package's kernel values, ``"auto"`` and
+    ``"pallas"`` (the scan kernel on a CUDA tensor, its plain version on a
+    CPU tensor); any other value raises, since a CPU tensor is the plain
+    route and there is no ``"jnp"`` one.
     """
     if backend not in ("auto", "pallas"):
         raise InvalidArgumentError(
@@ -112,9 +196,31 @@ def stream_scan(iq_r, iq_i, params: LoraParams, *,
     if total % stride != 0:
         raise ValueError(
             f"stream length {total} not a multiple of stride {stride}")
-    idx, p, pav = stream_window_detect(iq_r.contiguous(), iq_i.contiguous(),
-                                       params, stride, total // stride)
-    return StreamScan(idx, p, pav)
+    if mesh is None:
+        if isinstance(iq_r, DTensor):
+            raise InvalidArgumentError(
+                "a DTensor stream is scanned with its mesh: pass mesh=")
+        idx, p, pav = stream_window_detect(iq_r.contiguous(),
+                                           iq_i.contiguous(), params,
+                                           stride, total // stride)
+        return StreamScan(idx, p, pav)
+
+    n_shards = axis_size(mesh, axis)
+    if (total // stride) % n_shards != 0:
+        raise ValueError(
+            f"{total // stride} windows not divisible by {n_shards} shards")
+    br = local_block(iq_r, mesh, axis)
+    bi = local_block(iq_i, mesh, axis)
+    block = br.shape[-1]
+    w = min(step, block)
+    leads = _all_gather(torch.stack([br[..., :w], bi[..., :w]]), mesh, axis,
+                        "halo")
+    halo = following(leads, mesh.get_local_rank(axis), step)
+    out = stream_window_detect(torch.cat([br, halo[0]], dim=-1),
+                               torch.cat([bi, halo[1]], dim=-1), params,
+                               stride, block // stride)
+    return StreamScan(*(DTensor.from_local(t, mesh, iq_r.placements,
+                                           run_check=False) for t in out))
 
 
 def _shift_back(x, k: int):

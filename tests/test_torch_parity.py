@@ -294,6 +294,8 @@ def test_port_import_loads_no_jax_module():
             f"import {PORT}.runners.tx, {PORT}.runners.rx\n"
             f"import {PORT}.runners.stream_rx, {PORT}.runners.awgn_sweep\n"
             f"import {PORT}.runners.lorawan_roundtrip\n"
+            f"import {PORT}.runners.vector_dump, {PORT}.utils.vectors\n"
+            f"import {PORT}.parallel.mesh, {PORT}.parallel.distributed\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib') or m.startswith('"
             "lora_sdr_lightweight_standalone_library_clean_tpu.')]\n"
@@ -316,6 +318,6 @@ def test_public_names():
                  "decode_frame_padded", "decode_header", "frame_symbols",
                  "max_frame_symbols", "FrameHeader", "FrameResult",
                  "receive_stream_frames", "stream_frames_init",
-                 "RecoveredFrames"):
+                 "RecoveredFrames", "mesh"):
         assert hasattr(T, name), name
         assert name == "params_from_reference" or hasattr(J, name), name

@@ -3,21 +3,17 @@ port, up to the deliberate differences listed here by name.
 
 A name is exported when it is public in the package's namespace (the
 subpackages themselves aside) or in the ``__all__`` of an exported module
-(``errors``, ``streaming``, ``channel``, ``sweep``, ``lorawan``).  Two
+(``errors``, ``mesh``, ``streaming``, ``channel``, ``sweep``,
+``lorawan``).  Two
 signatures agree when their parameters have the same names, kinds and
 defaults, in order; annotations differ by design (``jnp.ndarray`` against
 ``torch.Tensor``) and are not compared.  The deliberate differences:
 
-- ``mesh``/``axis`` (sharding over a device mesh) are not taken until the
-  port's ``torch.distributed`` layer; the JAX package's arguments after
-  ``mesh`` become keyword-only, so a JAX-style positional call cannot pass
-  a mesh as something else;
-- ``device=`` arguments: host data goes to the CUDA card unless the caller
-  names another device;
+- ``device=`` arguments: host data (and a mesh's ranks) go to the CUDA
+  card unless the caller names another device;
 - a ``torch.Generator`` (``generator``) where JAX takes a PRNG ``key``;
-- the JAX-only names: the ``mesh`` module's (the parallel slice) and
-  ``streaming.race_stream_backends`` (the TPU's stream-scan crossover
-  race, not carried over);
+- the JAX-only name ``streaming.race_stream_backends`` (the TPU's
+  stream-scan crossover race, not carried over);
 - no ``"jnp"`` route: ``backend`` keeps its JAX default and values, and a
   CPU tensor is the plain route, so ``"jnp"`` raises (checked below).
 """
@@ -42,13 +38,10 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.errors import
 torch.set_num_threads(1)
 
 SUBPACKAGES = {"models", "ops", "parallel", "utils", "runners"}
-MESH_AXIS = {"receive_stream", "receive_stream_frames",
-             "streaming.stream_scan"}
 DEVICE = {"from_complex", "stream_rx_init", "stream_frames_init",
-          "lorawan.build_frame", "sweep.per_sweep"}
+          "lorawan.build_frame", "sweep.per_sweep", "mesh.make_mesh"}
 GENERATOR = {"channel.awgn", "channel.apply_channel"}
-JAX_ONLY = {"mesh.make_mesh", "mesh.packet_sharding", "mesh.replicated",
-            "mesh.shard_packets", "streaming.race_stream_backends"}
+JAX_ONLY = {"streaming.race_stream_backends"}
 
 
 def _public(pkg):
@@ -87,15 +80,7 @@ def _normalised(name, jax_fn, port_fn, used):
     applied to ``name``."""
     jsig = inspect.signature(jax_fn).parameters.values()
     tsig = inspect.signature(port_fn).parameters.values()
-    want, after_mesh = [], False
-    for p in jsig:
-        if p.name in ("mesh", "axis"):
-            used.setdefault("mesh", set()).add(name)
-            after_mesh = True
-            continue
-        kind = (inspect.Parameter.KEYWORD_ONLY if after_mesh
-                and p.kind == p.POSITIONAL_OR_KEYWORD else p.kind)
-        want.append((p.name, kind, _default(p.default)))
+    want = [(p.name, p.kind, _default(p.default)) for p in jsig]
     got = []
     for p in tsig:
         if p.name == "device":
@@ -119,8 +104,7 @@ def test_deliberate_differences_are_exactly_the_listed_ones():
     used = {}
     for name in SHARED:
         _normalised(name, J_EXPORTS[name], T_EXPORTS[name], used)
-    assert used == {"mesh": MESH_AXIS, "device": DEVICE,
-                    "generator": GENERATOR}
+    assert used == {"device": DEVICE, "generator": GENERATOR}
     assert set(J_EXPORTS) - set(T_EXPORTS) == JAX_ONLY
     assert set(T_EXPORTS) - set(J_EXPORTS) == {"params_from_reference"}
 
@@ -135,7 +119,7 @@ def test_no_jnp_route_and_keyword_only_stride():
     s = torch.zeros(4 * p.step)
     with pytest.raises(InvalidArgumentError, match="jnp"):
         T.streaming.stream_scan(s, s, p, backend="jnp")
-    with pytest.raises(TypeError):
-        T.streaming.stream_scan(s, s, p, p.step)      # JAX's 4th is mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        T.streaming.stream_scan(s, s, p, p.step)      # the 4th is the mesh
     assert T.streaming.stream_scan(s, s, p, stride=p.step,
                                    backend="pallas").index.shape == (4,)

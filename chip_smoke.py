@@ -147,9 +147,11 @@ Phases (one line each; any failure raises and the exit code is nonzero):
 
 Phases run in the order 1-6D, 8F, 8S, 7, 8W, 8L, 8R, 8P, 8V (phase 7 times
 8F's and 8S's cells).  Every slice, stream and full-RX run, each phase 8,
-and each of 8P's main-path calls in its ranks sets the launch counts to 0
-just before it and reads them just after; a kernel of that path that did
-not launch fails the run, and 8P's launches join the kernels' line.
+and each of 8P's main-path calls in its ranks counts the launches of each
+kernel from just before it to just after it (differences of the port's
+``COUNTS["launch.<kernel>"]``, ``utils/spans.py``); a kernel of that path
+that did not launch fails the run, and 8P's launches join the kernels'
+line.
 It ends with a JSON line of the kernels, the ``nvidia-smi`` name/power
 line, and ``{"ok": true, "device": {...}}`` as the last line.  Without a
 CUDA device, or outside a checkout, it exits nonzero and prints no result.
@@ -183,6 +185,8 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
     streaming)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (
     cuda_build, native)
+from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (
+    COUNTS)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.tensors import (
     device_table)
 
@@ -231,15 +235,9 @@ MEM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 7
 VEC_DIR = Path(__file__).resolve().parent / "tests" / "vectors"
-COUNTS = ((cuda_tx, "DENSE_LAUNCHES", "tx_dense"),
-          (cuda_tx, "FACTORED_LAUNCHES", "tx_factored"),
-          (cuda_tx, "OSR_LAUNCHES", "tx_osr"),
-          (cuda_rx, "DENSE_LAUNCHES", "rx_dense"),
-          (cuda_rx, "HYBRID_LAUNCHES", "rx_hybrid"),
-          (cuda_rx, "OSR_LAUNCHES", "rx_osr"),
-          (cuda_stream, "STREAM_LAUNCHES", "stream_scan"),
-          (cuda_detect, "DETECT_LAUNCHES", "rotate_detect"))
-KERNELS = [name for _, _, name in COUNTS]
+KERNELS = ["tx_dense", "tx_factored", "tx_osr", "rx_dense", "rx_hybrid",
+           "rx_osr", "stream_scan", "rotate_detect"]
+_COUNTED_FROM = {}      # COUNTS["launch.<kernel>"] at the last _reset_counts
 
 
 def _smi() -> str:
@@ -279,14 +277,13 @@ def _abba(kernel_fn, plain_fn, iters: int = 10) -> tuple[float, float]:
 
 
 def _reset_counts() -> None:
-    for mod, attr, _ in COUNTS:
-        setattr(mod, attr, 0)
-    for mod in (cuda_tx, cuda_rx, cuda_stream, cuda_detect):
-        mod.KERNEL_LAUNCHES = 0
+    _COUNTED_FROM.update({k: COUNTS["launch." + k] for k in KERNELS})
 
 
 def _counts() -> dict:
-    return {name: getattr(mod, attr) for mod, attr, name in COUNTS}
+    """Each kernel's launches since the last ``_reset_counts``."""
+    return {k: COUNTS["launch." + k] - _COUNTED_FROM.get(k, 0)
+            for k in KERNELS}
 
 
 def _noisy_packets(p, count: int, rng, dev, raw: bool = False):
@@ -1649,14 +1646,15 @@ def _sharded_rx(mesh, sr, si, p, kw, state=None):
         distributed)
     gr = distributed.make_global_array(sr, distributed.stream_sharding(mesh))
     gi = distributed.make_global_array(si, distributed.stream_sharding(mesh))
-    before = dict(streaming.COLLECTIVE_BYTES)
+    kinds = ("halo", "scan", "results")
+    before = {k: COUNTS["collective_bytes." + k] for k in kinds}
     _sync()
     _reset_counts()
     t0 = time.perf_counter()
     pk, state = lora.receive_stream(gr, gi, p, state=state, mesh=mesh, **kw)
     _sync()
     seconds = time.perf_counter() - t0
-    sent = {k: v - before[k] for k, v in streaming.COLLECTIVE_BYTES.items()}
+    sent = {k: COUNTS["collective_bytes." + k] - before[k] for k in kinds}
     return pk, state, _counts(), sent, seconds
 
 

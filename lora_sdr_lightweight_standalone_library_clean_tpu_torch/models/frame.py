@@ -32,6 +32,9 @@ variable-length recovery.  ``decode_frame`` is the one host-synchronising
 convenience, as in the JAX package.  Symbols are int32 (the JAX package's
 uint16 values), bytes uint8, CRCs int32; the header checksum is integer
 parity, where the JAX package takes a float matmul mod 2 (the same bits).
+Under a ``torch.profiler`` session the encoder is the span
+``lora.codec.encode_frame`` and the decoders ``lora.codec.decode_frame``
+(``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import torch
 from ..ops import codes
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import spanned
 from ..utils.tensors import device_table, int_tensor
 from .modem import _crc_position_tables, _xor_reduce_last
 
@@ -233,6 +237,7 @@ def crc_sx1272_at(data, length):
 # Encode
 # ---------------------------------------------------------------------------
 
+@spanned("lora.codec.encode_frame")
 def encode_frame(payload, params: LoraParams, crc: bool = True):
     """Payload bytes -> framed on-air symbols (batched), int32.
 
@@ -337,6 +342,7 @@ def decode_header(symbols, params: LoraParams) -> FrameHeader:
     return _decode_header_block(int_tensor(symbols, torch.int32), params)[0]
 
 
+@spanned("lora.codec.decode_frame")
 def decode_frame_padded(symbols, params: LoraParams,
                         max_payload_len: int,
                         crc: bool = True) -> FrameResult:
@@ -410,6 +416,7 @@ def decode_frame_padded(symbols, params: LoraParams,
     )
 
 
+@spanned("lora.codec.decode_frame")
 def decode_frame(symbols, params: LoraParams) -> FrameResult:
     """Host convenience decode of ONE frame: exact-size payload.
 

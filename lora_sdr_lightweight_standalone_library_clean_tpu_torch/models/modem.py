@@ -20,6 +20,13 @@ package.
 Symbols are int32 tensors (the JAX package's uint16 values; torch's uint16
 type supports too few operations on CUDA), decoded bytes uint8, CRCs int32.
 
+Under a ``torch.profiler`` session the entry points are spans
+(``utils/spans.py``): ``lora.codec.encode``/``lora.codec.decode``,
+``lora.tx.modulate``, and ``lora.rx.demod`` holding the stages
+``lora.rx.norm`` (the peak normalization), ``lora.rx.estimate``
+(``_estimate_core``) and ``lora.rx.detect`` (the RX kernel and the sync
+word).
+
 Reference parity map:
  - ``encode``             -> phy.cpp:58-66  + LoRaEncoder.cpp:6-18
  - ``decode``             -> phy.cpp:245-261 + LoRaDecoder.cpp:7-21
@@ -44,6 +51,7 @@ from ..ops.cuda_rx import rx_window_detect
 from ..ops.detect import detect_ri
 from ..utils.config import LoraParams, Window
 from ..utils.errors import InvalidArgumentError, RangeError
+from ..utils.spans import span, spanned
 from ..utils.tensors import device_table, host_device, int_tensor
 
 __all__ = [
@@ -76,6 +84,7 @@ class DemodResult(NamedTuple):
 # Codec  (LoRaEncoder.cpp / LoRaDecoder.cpp / phy.cpp:245-261)
 # ---------------------------------------------------------------------------
 
+@spanned("lora.codec.encode")
 def encode(payload, params: LoraParams | None = None):
     """Bytes -> Hamming(8,4) symbols, one codeword per nibble
     (LoRaEncoder.cpp:6-18).  Batched over leading axes; int32 out."""
@@ -202,6 +211,7 @@ def crc_sx1272(data, length: int | None = None):
     return res ^ (m0 ^ (m1 << 8))
 
 
+@spanned("lora.codec.decode")
 def decode(symbols, params: LoraParams | None = None, *,
            check_crc: bool = True):
     """Symbol pairs -> bytes via Hamming(8,4) decode, plus CRC verdict
@@ -238,6 +248,7 @@ def decode(symbols, params: LoraParams | None = None, *,
 # Modulation  (phy.cpp:68-79)
 # ---------------------------------------------------------------------------
 
+@spanned("lora.tx.modulate")
 def modulate(symbols, params: LoraParams, amplitude: float = 1.0):
     """Symbols -> IQ planes; sync prelude + phase-continuous up-chirps.
 
@@ -248,6 +259,7 @@ def modulate(symbols, params: LoraParams, amplitude: float = 1.0):
     return modulate_ri(symbols, params, amplitude)
 
 
+@spanned("lora.tx.modulate")
 def modulate_dechirped(symbols, params: LoraParams, amplitude: float = 1.0):
     """Modulate and dechirp in one pass: the producer chain of the
     golden-vector / perf pipeline (modulate -> external dechirp,
@@ -426,6 +438,7 @@ def _full_rx_mult(sf: int, bw_scale: int, window: Window):
     return dcr, dci
 
 
+@spanned("lora.rx.demod")
 def demodulate(iq_r, iq_i, params: LoraParams,
                symbol_cap: int | None = None,
                backend: str = "auto") -> DemodResult:
@@ -469,37 +482,39 @@ def demodulate(iq_r, iq_i, params: LoraParams,
     if symbol_cap is not None and num_symbols > symbol_cap:
         raise RangeError(f"{num_symbols} symbols exceed cap {symbol_cap}")
 
-    est = _estimate_core(iq_r, iq_i, params, 2, tie_break_idx=False)
-    t_off = torch.round(est.time_offset).to(torch.int32)
-    rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
-    if two_stage:
-        zr, zi = _timing_shifted_windows(iq_r, iq_i, t_off, total, step,
-                                         osr, n)
-        dcr, dci = device_table(downchirp_ri, params.sf, params.bw_scale,
-                                device=iq_r.device)
-        ar = zr * dcr - zi * dci
-        ai = zr * dci + zi * dcr
-        idx, power, power_avg = _rotate_detect(
-            ar, ai, rate, _rotation_start(rate, t_off, total, params),
-            params)
-    else:
-        mr, mi = device_table(_full_rx_mult, params.sf, params.bw_scale,
-                              params.window, device=iq_r.device)
-        idx, power, power_avg = rx_window_detect(
-            iq_r.contiguous(), iq_i.contiguous(),
-            torch.clamp(t_off, -step, step), rate, torch.ones_like(rate),
-            mr, mi, params)
-    sw0, sw1 = idx[..., 0], idx[..., 1]
-    shift = params.sf - 4 if params.sf > 4 else 0
-    sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
-    return DemodResult(
-        symbols=idx[..., 2:],
-        sync_word=sync.to(torch.uint8),
-        cfo=est.cfo,
-        time_offset=est.time_offset,
-        power=power,
-        power_avg=power_avg,
-    )
+    with span("lora.rx.estimate"):
+        est = _estimate_core(iq_r, iq_i, params, 2, tie_break_idx=False)
+        t_off = torch.round(est.time_offset).to(torch.int32)
+        rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
+    with span("lora.rx.detect"):
+        if two_stage:
+            zr, zi = _timing_shifted_windows(iq_r, iq_i, t_off, total, step,
+                                             osr, n)
+            dcr, dci = device_table(downchirp_ri, params.sf, params.bw_scale,
+                                    device=iq_r.device)
+            ar = zr * dcr - zi * dci
+            ai = zr * dci + zi * dcr
+            idx, power, power_avg = _rotate_detect(
+                ar, ai, rate, _rotation_start(rate, t_off, total, params),
+                params)
+        else:
+            mr, mi = device_table(_full_rx_mult, params.sf, params.bw_scale,
+                                  params.window, device=iq_r.device)
+            idx, power, power_avg = rx_window_detect(
+                iq_r.contiguous(), iq_i.contiguous(),
+                torch.clamp(t_off, -step, step), rate, torch.ones_like(rate),
+                mr, mi, params)
+        sw0, sw1 = idx[..., 0], idx[..., 1]
+        shift = params.sf - 4 if params.sf > 4 else 0
+        sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
+        return DemodResult(
+            symbols=idx[..., 2:],
+            sync_word=sync.to(torch.uint8),
+            cfo=est.cfo,
+            time_offset=est.time_offset,
+            power=power,
+            power_avg=power_avg,
+        )
 
 
 def _timing_shifted_windows(iq_r, iq_i, t_off, total: int, step: int,
@@ -564,6 +579,7 @@ def _signed_mod(x, m: int):
     return torch.where(r > m // 2, r - m, r)
 
 
+@spanned("lora.rx.demod")
 def demodulate_wide(iq_r, iq_i, params: LoraParams,
                     normalize: bool = True,
                     backend: str = "auto") -> DemodResult:
@@ -621,55 +637,67 @@ def demodulate_wide(iq_r, iq_i, params: LoraParams,
     total = sample_count // step
     if total < 2:
         raise RangeError("input must contain at least two symbols")
-    iq_r = iq_r.contiguous()
-    iq_i = iq_i.contiguous()
+    with span("lora.rx.norm"):
+        iq_r = iq_r.contiguous()
+        iq_i = iq_i.contiguous()
+        scale = _peak_scale(iq_r, iq_i, normalize)
 
-    if normalize:
-        inf = float("inf")
-        max_amp = torch.maximum(
-            torch.linalg.vector_norm(iq_r, ord=inf, dim=-1),
-            torch.linalg.vector_norm(iq_i, ord=inf, dim=-1))
-        scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
-                            torch.ones_like(max_amp))[..., None]
-    else:
-        scale = torch.ones(iq_r.shape[:-1] + (1,), dtype=torch.float32,
-                           device=iq_r.device)
+    with span("lora.rx.estimate"):
+        est = _estimate_core(iq_r[..., : 2 * step] * scale,
+                             iq_i[..., : 2 * step] * scale,
+                             params, 2, tie_break_idx=True)
+        t_off = torch.round(est.time_offset).to(torch.int32)
+        # the decimated-grid rate (-2*pi*cfo/n per decimated sample) spread
+        # over osr full-rate samples
+        rate = -float(TWO_PI) * est.cfo / float(np.float32(n * osr))
 
-    est = _estimate_core(iq_r[..., : 2 * step] * scale,
-                         iq_i[..., : 2 * step] * scale,
-                         params, 2, tie_break_idx=True)
-    t_off = torch.round(est.time_offset).to(torch.int32)
-    # the decimated-grid rate (-2*pi*cfo/n per decimated sample) spread
-    # over osr full-rate samples
-    rate = -float(TWO_PI) * est.cfo / float(np.float32(n * osr))
-    mr, mi = device_table(_wide_mult, n, osr, params.window,
+    with span("lora.rx.detect"):
+        mr, mi = device_table(_wide_mult, n, osr, params.window,
+                              device=iq_r.device)
+        idx, power, power_avg = rx_window_detect(
+            iq_r, iq_i, torch.clamp(t_off, -step, step), rate,
+            scale[..., 0].contiguous(), mr, mi, params, wide=True)
+
+        # residual timing/CFO moves every tone by the same wide-bin offset:
+        # measure it on the sync pilots and subtract it before snapping
+        exp0, exp1 = params.sync_nibble_symbols()
+        d0 = _signed_mod(idx[..., 0] - exp0 * bs, step).to(torch.float32)
+        d1 = _signed_mod(idx[..., 1] - exp1 * bs, step).to(torch.float32)
+        delta = (d0 + d1) * 0.5
+        shifted = _signed_mod(
+            idx - torch.round(delta[..., None]).to(torch.int32), step)
+        corrected = torch.round(shifted.to(torch.float32)
+                                / float(np.float32(bs))).to(torch.int32)
+        sym_wide = torch.remainder(corrected, n)
+        sw0, sw1 = sym_wide[..., 0], sym_wide[..., 1]
+        shift = params.sf - 4 if params.sf > 4 else 0
+        sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
+        return DemodResult(
+            symbols=sym_wide[..., 2:],
+            sync_word=sync.to(torch.uint8),
+            cfo=est.cfo,
+            time_offset=est.time_offset,
+            power=power,
+            power_avg=power_avg,
+        )
+
+
+def _peak_scale(iq_r, iq_i, normalize: bool):
+    """The per-packet scale (..., 1) of the peak normalization into
+    [-1, 1] (LoRaDemod.cpp:60-78): 1 / max(|I|, |Q|) where that peak
+    exceeds 1, else 1; ones without ``normalize``.  One reduction pass per
+    plane (the inf-norm is max |x| without a full-size |x| temporary); the
+    caller multiplies the (much smaller) estimator slice and symbol
+    windows by it instead of materializing a normalized copy."""
+    if not normalize:
+        return torch.ones(iq_r.shape[:-1] + (1,), dtype=torch.float32,
                           device=iq_r.device)
-    idx, power, power_avg = rx_window_detect(
-        iq_r, iq_i, torch.clamp(t_off, -step, step), rate,
-        scale[..., 0].contiguous(), mr, mi, params, wide=True)
-
-    # residual timing/CFO moves every tone by the same wide-bin offset:
-    # measure it on the sync pilots and subtract it before snapping
-    exp0, exp1 = params.sync_nibble_symbols()
-    d0 = _signed_mod(idx[..., 0] - exp0 * bs, step).to(torch.float32)
-    d1 = _signed_mod(idx[..., 1] - exp1 * bs, step).to(torch.float32)
-    delta = (d0 + d1) * 0.5
-    shifted = _signed_mod(idx - torch.round(delta[..., None]).to(torch.int32),
-                          step)
-    corrected = torch.round(shifted.to(torch.float32)
-                            / float(np.float32(bs))).to(torch.int32)
-    sym_wide = torch.remainder(corrected, n)
-    sw0, sw1 = sym_wide[..., 0], sym_wide[..., 1]
-    shift = params.sf - 4 if params.sf > 4 else 0
-    sync = (((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF)
-    return DemodResult(
-        symbols=sym_wide[..., 2:],
-        sync_word=sync.to(torch.uint8),
-        cfo=est.cfo,
-        time_offset=est.time_offset,
-        power=power,
-        power_avg=power_avg,
-    )
+    inf = float("inf")
+    max_amp = torch.maximum(
+        torch.linalg.vector_norm(iq_r, ord=inf, dim=-1),
+        torch.linalg.vector_norm(iq_i, ord=inf, dim=-1))
+    return torch.where(max_amp > 1.0, 1.0 / max_amp,
+                       torch.ones_like(max_amp))[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,10 @@ from ..ops.cuda_detect import fused_rotate_detect
 from ..ops.cuda_rx import rx_window_detect
 from ..utils.config import LoraParams, Window
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import span, spanned
 from ..utils.tensors import device_table
 from .modem import (TWO_PI, DemodResult, _estimate_core,
-                    _timing_shifted_windows, window_table)
+                    _timing_shifted_windows, _peak_scale, window_table)
 
 BACKENDS = ("auto", "pallas_rx", "pallas")
 
@@ -61,6 +62,7 @@ def _two_stage(backend: str) -> bool:
     return backend == "pallas"
 
 
+@spanned("lora.rx.demod")
 def demodulate_tones(iq_r, iq_i, params: LoraParams,
                      normalize: bool = True,
                      backend: str = "auto") -> DemodResult:
@@ -76,6 +78,9 @@ def demodulate_tones(iq_r, iq_i, params: LoraParams,
 
     ``backend``: ``"auto"``/``"pallas_rx"`` (the fused RX kernel) or
     ``"pallas"`` (the two-stage route); see the module docstring.
+
+    Stages (spans under a profiler session): ``lora.rx.norm``,
+    ``lora.rx.estimate``, ``lora.rx.detect`` inside ``lora.rx.demod``.
     """
     two_stage = _two_stage(backend)
     n, osr, step = params.n, params.osr, params.step
@@ -83,62 +88,52 @@ def demodulate_tones(iq_r, iq_i, params: LoraParams,
     total = sample_count // step
     have_sync = total >= 2
     cut = total * step
-    iq_r = iq_r[..., :cut].contiguous()
-    iq_i = iq_i[..., :cut].contiguous()
 
-    if normalize:
-        # one reduction pass per plane for the peak (the inf-norm is
-        # max |x| without a full-size |x| temporary); the scale multiplies
-        # the (much smaller) estimator slice and symbol windows instead of
-        # materializing a normalized copy of the whole stream
-        inf = float("inf")
-        max_amp = torch.maximum(
-            torch.linalg.vector_norm(iq_r, ord=inf, dim=-1),
-            torch.linalg.vector_norm(iq_i, ord=inf, dim=-1))
-        scale = torch.where(max_amp > 1.0, 1.0 / max_amp,
-                            torch.ones_like(max_amp))[..., None]
-    else:
-        scale = torch.ones(iq_r.shape[:-1] + (1,), dtype=torch.float32,
-                           device=iq_r.device)
+    with span("lora.rx.norm"):
+        iq_r = iq_r[..., :cut].contiguous()
+        iq_i = iq_i[..., :cut].contiguous()
+        scale = _peak_scale(iq_r, iq_i, normalize)
 
-    est_syms = min(total, 2)
-    est = _estimate_core(iq_r[..., : est_syms * step] * scale,
-                         iq_i[..., : est_syms * step] * scale,
-                         params, est_syms, tie_break_idx=True)
-    t_off = torch.round(est.time_offset).to(torch.int32)
-    rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
+    with span("lora.rx.estimate"):
+        est_syms = min(total, 2)
+        est = _estimate_core(iq_r[..., : est_syms * step] * scale,
+                             iq_i[..., : est_syms * step] * scale,
+                             params, est_syms, tie_break_idx=True)
+        t_off = torch.round(est.time_offset).to(torch.int32)
+        rate = -float(TWO_PI) * est.cfo / float(np.float32(n))
 
-    if two_stage:
-        zr, zi = _timing_shifted_windows(iq_r, iq_i, t_off, total, step,
-                                         osr, n)
-        zr = zr * scale[..., None]
-        zi = zi * scale[..., None]
-        idx, power, power_avg = _rotate_detect(
-            zr, zi, rate, _rotation_start(rate, t_off, total, params),
-            params)
-    else:
-        mr, mi = device_table(_tones_mult, n, params.window,
-                              device=iq_r.device)
-        idx, power, power_avg = rx_window_detect(
-            iq_r, iq_i, torch.clamp(t_off, -step, step), rate,
-            scale[..., 0].contiguous(), mr, mi, params)
-    if have_sync:
-        sw0, sw1 = idx[..., 0], idx[..., 1]
-        shift = params.sf - 4 if params.sf > 4 else 0
-        sync = ((((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF))
-        symbols = idx[..., 2:]
-    else:
-        sync = torch.zeros(idx.shape[:-1], dtype=torch.int32,
-                           device=idx.device)
-        symbols = idx
-    return DemodResult(
-        symbols=symbols.to(torch.int32),
-        sync_word=sync.to(torch.uint8),
-        cfo=est.cfo,
-        time_offset=est.time_offset,
-        power=power,
-        power_avg=power_avg,
-    )
+    with span("lora.rx.detect"):
+        if two_stage:
+            zr, zi = _timing_shifted_windows(iq_r, iq_i, t_off, total, step,
+                                             osr, n)
+            zr = zr * scale[..., None]
+            zi = zi * scale[..., None]
+            idx, power, power_avg = _rotate_detect(
+                zr, zi, rate, _rotation_start(rate, t_off, total, params),
+                params)
+        else:
+            mr, mi = device_table(_tones_mult, n, params.window,
+                                  device=iq_r.device)
+            idx, power, power_avg = rx_window_detect(
+                iq_r, iq_i, torch.clamp(t_off, -step, step), rate,
+                scale[..., 0].contiguous(), mr, mi, params)
+        if have_sync:
+            sw0, sw1 = idx[..., 0], idx[..., 1]
+            shift = params.sf - 4 if params.sf > 4 else 0
+            sync = ((((sw0 >> shift) & 0xF) << 4) | ((sw1 >> shift) & 0xF))
+            symbols = idx[..., 2:]
+        else:
+            sync = torch.zeros(idx.shape[:-1], dtype=torch.int32,
+                               device=idx.device)
+            symbols = idx
+        return DemodResult(
+            symbols=symbols.to(torch.int32),
+            sync_word=sync.to(torch.uint8),
+            cfo=est.cfo,
+            time_offset=est.time_offset,
+            power=power,
+            power_avg=power_avg,
+        )
 
 
 def _rotation_start(rate, t_off, total: int, params: LoraParams):

@@ -17,8 +17,9 @@ tensor it runs ``fused_rotate_detect_ref`` (the same steps in torch, then
 ``detect_ri``); on a CUDA tensor it launches ``csrc/rotate_detect.cu``, the
 ``RowReader`` instance of ``rx_dense``, for n = 4 ... 512 (the JAX kernel's
 ``PALLAS_MAX_N``); above that it raises ``InvalidArgumentError``: sf10-12
-take the fused RX kernel, ``backend="auto"``.  Each launch adds one to
-``DETECT_LAUNCHES`` and to ``KERNEL_LAUNCHES``.
+take the fused RX kernel, ``backend="auto"``.  The launch path runs in the
+span ``lora.kernel.rotate_detect``, and each launch adds one to
+``COUNTS["launch.rotate_detect"]`` (``utils/spans.py``).
 
 Kernel note.  Replaces ``ops/pallas_detect.py:_detect_kernel``, which
 multiplies tiles of rows by dense (n, n) cos/sin DFT matrices on the TPU's
@@ -35,16 +36,15 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import count, span
 from ..utils.tensors import device_table
 from .cuda_rx import _checked, _fft_tables
 from .detect import detect_ri
 
 __all__ = ["fused_rotate_detect", "fused_rotate_detect_ref",
-           "DETECT_LAUNCHES", "KERNEL_LAUNCHES", "DETECT_MAX_N"]
+           "DETECT_MAX_N"]
 
 DETECT_MAX_N = 512        # PALLAS_MAX_N
-DETECT_LAUNCHES = 0
-KERNEL_LAUNCHES = 0       # = DETECT_LAUNCHES
 
 
 def fused_rotate_detect_ref(zr, zi, rate, start):
@@ -76,42 +76,41 @@ def fused_rotate_detect(zr, zi, rate, start):
     be contiguous float32 with N a power of two in 4 ... 512 (else
     ``InvalidArgumentError``).
     """
-    global DETECT_LAUNCHES, KERNEL_LAUNCHES
     if not zr.is_cuda:
         return fused_rotate_detect_ref(zr, zi, rate, start)
-    if zr.ndim != 3:
-        raise ValueError(f"zr must be (B, S, N), got {tuple(zr.shape)}")
-    b, s, n = zr.shape
-    if n & (n - 1) or not 4 <= n <= DETECT_MAX_N:
-        raise InvalidArgumentError(
-            f"the rotate-detect kernel takes 4 ... {DETECT_MAX_N}-point "
-            f"windows, got {n}: sf10-12 take backend='auto', the fused RX "
-            "kernel")
-    dev = zr.device
-    zr = _checked(zr, "zr", torch.float32, (b, s, n), dev)
-    zi = _checked(zi, "zi", torch.float32, (b, s, n), dev)
-    rate = _checked(rate, "rate", torch.float32, (b,), dev)
-    start = _checked(start, "start", torch.float32, (b, s), dev)
-    if b * s >= 2 ** 31:
-        raise ValueError(f"{b * s} rows exceed the kernel's 32-bit row "
-                         "indexing")
-    idx = torch.empty((b, s), dtype=torch.int32, device=dev)
-    pw = torch.empty((b, s), dtype=torch.float32, device=dev)
-    pav = torch.empty((b, s), dtype=torch.float32, device=dev)
-    if b * s == 0:
+    with span("lora.kernel.rotate_detect"):
+        if zr.ndim != 3:
+            raise ValueError(f"zr must be (B, S, N), got {tuple(zr.shape)}")
+        b, s, n = zr.shape
+        if n & (n - 1) or not 4 <= n <= DETECT_MAX_N:
+            raise InvalidArgumentError(
+                f"the rotate-detect kernel takes 4 ... {DETECT_MAX_N}-point "
+                f"windows, got {n}: sf10-12 take backend='auto', the fused RX "
+                "kernel")
+        dev = zr.device
+        zr = _checked(zr, "zr", torch.float32, (b, s, n), dev)
+        zi = _checked(zi, "zi", torch.float32, (b, s, n), dev)
+        rate = _checked(rate, "rate", torch.float32, (b,), dev)
+        start = _checked(start, "start", torch.float32, (b, s), dev)
+        if b * s >= 2 ** 31:
+            raise ValueError(f"{b * s} rows exceed the kernel's 32-bit row "
+                             "indexing")
+        idx = torch.empty((b, s), dtype=torch.int32, device=dev)
+        pw = torch.empty((b, s), dtype=torch.float32, device=dev)
+        pav = torch.empty((b, s), dtype=torch.float32, device=dev)
+        if b * s == 0:
+            return idx, pw, pav
+        tw, bins = device_table(_fft_tables, n, device=dev)
+        scale_db = float(np.float32(20.0 * np.log10(n)))
+        lib = cuda_build.load()
+        with torch.cuda.device(dev):
+            err = lib.lora_rotate_detect(
+                zr.data_ptr(), zi.data_ptr(), rate.data_ptr(),
+                start.data_ptr(), tw.data_ptr(), bins.data_ptr(), b, s, n,
+                scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"lora_rotate_detect launch failed: cudaError_t {err}")
+        count("launch.rotate_detect")
         return idx, pw, pav
-    tw, bins = device_table(_fft_tables, n, device=dev)
-    scale_db = float(np.float32(20.0 * np.log10(n)))
-    lib = cuda_build.load()
-    with torch.cuda.device(dev):
-        err = lib.lora_rotate_detect(
-            zr.data_ptr(), zi.data_ptr(), rate.data_ptr(), start.data_ptr(),
-            tw.data_ptr(), bins.data_ptr(), b, s, n, scale_db,
-            idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"lora_rotate_detect launch failed: cudaError_t {err}")
-    DETECT_LAUNCHES += 1
-    KERNEL_LAUNCHES += 1
-    return idx, pw, pav

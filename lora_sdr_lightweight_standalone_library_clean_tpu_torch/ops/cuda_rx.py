@@ -30,9 +30,9 @@ runs ``rx_window_detect_ref``, the torch form of the JAX package's jnp path
 above); on a CUDA tensor it launches ``csrc/rx_dense.cu`` (n <= 512) or
 ``csrc/rx_hybrid.cu`` (n = 1024 ... 16384) for osr-1 windows without a
 halo, and ``csrc/rx_osr.cu`` for decimated osr > 1 windows and halos.
-Each launch adds one to its kernel's count (``DENSE_LAUNCHES``,
-``HYBRID_LAUNCHES`` or ``OSR_LAUNCHES``) and to their sum
-``KERNEL_LAUNCHES``.
+The launch path runs in the span ``lora.kernel.<kernel>``, and each launch
+adds one to ``COUNTS["launch.<kernel>"]`` (``utils/spans.py``), the kernel
+being ``rx_dense``, ``rx_hybrid`` or ``rx_osr``.
 
 Non-finite input: where |X|^2 holds a NaN, both versions follow the jnp
 rule: the first NaN bin wins, as ``torch.argmax`` and ``jnp.argmax`` pick
@@ -70,19 +70,15 @@ import torch
 from ..utils import cuda_build
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import count, span
 from ..utils.tensors import device_table
 from .detect import detect_ri
 
-__all__ = ["rx_window_detect", "rx_window_detect_ref", "KERNEL_LAUNCHES",
-           "DENSE_LAUNCHES", "HYBRID_LAUNCHES", "OSR_LAUNCHES",
-           "RX_DENSE_MAX_N", "RX_MAX_N"]
+__all__ = ["rx_window_detect", "rx_window_detect_ref", "RX_DENSE_MAX_N",
+           "RX_MAX_N"]
 
 RX_DENSE_MAX_N = 512      # rx_dense.cu; rx_hybrid.cu above
 RX_MAX_N = 16384          # the wide receiver's sf12/osr4 grid
-DENSE_LAUNCHES = 0
-HYBRID_LAUNCHES = 0
-OSR_LAUNCHES = 0
-KERNEL_LAUNCHES = 0       # DENSE_ + HYBRID_ + OSR_LAUNCHES
 
 
 def _geometry(params: LoraParams, wide: bool, halo) -> tuple[int, int]:
@@ -282,61 +278,59 @@ def rx_window_detect(stream_r, stream_i, t_off, rate, scale, mult_r, mult_i,
     halo, ``csrc/rx_osr.cu`` for decimated (osr > 1) windows and halos.  On
     CUDA every input must be contiguous and of the stated dtype.
     """
-    global KERNEL_LAUNCHES, DENSE_LAUNCHES, HYBRID_LAUNCHES, OSR_LAUNCHES
     if not stream_r.is_cuda:
         return rx_window_detect_ref(stream_r, stream_i, t_off, rate, scale,
                                     mult_r, mult_i, params, wide=wide,
                                     halo=halo)
     ndft, osr_k = _geometry(params, wide, halo)
     h0, h1 = halo
-    step = params.step
-    dev = stream_r.device
-    lead = tuple(stream_r.shape[:-1])
-    length = stream_r.shape[-1]
-    s_real = length // step
-    nd = s_real - h0 - h1
-    if s_real * step != length or nd <= 0:
-        raise ValueError(f"stream length {length} is not a multiple of "
-                         f"step={step} with more than {h0 + h1} symbols")
-    sr = _checked(stream_r, "stream_r", torch.float32, lead + (length,), dev)
-    si = _checked(stream_i, "stream_i", torch.float32, lead + (length,), dev)
-    t = _checked(t_off, "t_off", torch.int32, lead, dev)
-    r = _checked(rate, "rate", torch.float32, lead, dev)
-    sc = _checked(scale, "scale", torch.float32, lead, dev)
-    mr = _checked(mult_r, "mult_r", torch.float32, (ndft,), dev)
-    mi = _checked(mult_i, "mult_i", torch.float32, (ndft,), dev)
-    bsz = int(np.prod(lead)) if lead else 1
-    if bsz * s_real >= 2 ** 31:
-        raise ValueError(f"{bsz * s_real} windows exceed the kernel's "
-                         "32-bit window indexing")
-    idx = torch.empty(lead + (nd,), dtype=torch.int32, device=dev)
-    pw = torch.empty(lead + (nd,), dtype=torch.float32, device=dev)
-    pav = torch.empty(lead + (nd,), dtype=torch.float32, device=dev)
-    if bsz == 0:
-        return idx, pw, pav
-    tw, bins = device_table(_fft_tables, ndft, device=dev)
-    scale_db = float(np.float32(20.0 * np.log10(ndft)))
-    lib = cuda_build.load()
-    head = (sr.data_ptr(), si.data_ptr(), t.data_ptr(), r.data_ptr(),
-            sc.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw.data_ptr(),
-            bins.data_ptr())
-    tail = (scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
     if osr_k > 1 or h0 or h1:
-        name = "lora_rx_osr"
-        args = head + (bsz, s_real, ndft, osr_k, h0, h1) + tail
+        kernel = "rx_osr"
     else:
-        name = "lora_rx_dense" if ndft <= RX_DENSE_MAX_N else "lora_rx_hybrid"
-        args = head + (bsz, s_real, ndft) + tail
-    with torch.cuda.device(dev):
-        err = getattr(lib, name)(*args)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    KERNEL_LAUNCHES += 1
-    if name == "lora_rx_osr":
-        OSR_LAUNCHES += 1
-    elif name == "lora_rx_dense":
-        DENSE_LAUNCHES += 1
-    else:
-        HYBRID_LAUNCHES += 1
-    return idx, pw, pav
+        kernel = "rx_dense" if ndft <= RX_DENSE_MAX_N else "rx_hybrid"
+    with span("lora.kernel." + kernel):
+        step = params.step
+        dev = stream_r.device
+        lead = tuple(stream_r.shape[:-1])
+        length = stream_r.shape[-1]
+        s_real = length // step
+        nd = s_real - h0 - h1
+        if s_real * step != length or nd <= 0:
+            raise ValueError(f"stream length {length} is not a multiple of "
+                             f"step={step} with more than {h0 + h1} symbols")
+        plane = lead + (length,)
+        sr = _checked(stream_r, "stream_r", torch.float32, plane, dev)
+        si = _checked(stream_i, "stream_i", torch.float32, plane, dev)
+        t = _checked(t_off, "t_off", torch.int32, lead, dev)
+        r = _checked(rate, "rate", torch.float32, lead, dev)
+        sc = _checked(scale, "scale", torch.float32, lead, dev)
+        mr = _checked(mult_r, "mult_r", torch.float32, (ndft,), dev)
+        mi = _checked(mult_i, "mult_i", torch.float32, (ndft,), dev)
+        bsz = int(np.prod(lead)) if lead else 1
+        if bsz * s_real >= 2 ** 31:
+            raise ValueError(f"{bsz * s_real} windows exceed the kernel's "
+                             "32-bit window indexing")
+        idx = torch.empty(lead + (nd,), dtype=torch.int32, device=dev)
+        pw = torch.empty(lead + (nd,), dtype=torch.float32, device=dev)
+        pav = torch.empty(lead + (nd,), dtype=torch.float32, device=dev)
+        if bsz == 0:
+            return idx, pw, pav
+        tw, bins = device_table(_fft_tables, ndft, device=dev)
+        scale_db = float(np.float32(20.0 * np.log10(ndft)))
+        lib = cuda_build.load()
+        head = (sr.data_ptr(), si.data_ptr(), t.data_ptr(), r.data_ptr(),
+                sc.data_ptr(), mr.data_ptr(), mi.data_ptr(), tw.data_ptr(),
+                bins.data_ptr())
+        tail = (scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if kernel == "rx_osr":
+            args = head + (bsz, s_real, ndft, osr_k, h0, h1) + tail
+        else:
+            args = head + (bsz, s_real, ndft) + tail
+        with torch.cuda.device(dev):
+            err = getattr(lib, "lora_" + kernel)(*args)
+        if err:
+            raise RuntimeError(
+                f"lora_{kernel} launch failed: cudaError_t {err}")
+        count("launch." + kernel)
+        return idx, pw, pav

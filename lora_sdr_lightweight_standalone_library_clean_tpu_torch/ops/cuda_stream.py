@@ -22,10 +22,11 @@ tensor it runs ``stream_window_detect_ref``, the torch form of the JAX
 package's jnp branch of ``_scan_block`` (``_stride_windows``, the
 down-chirp product, ``detect_ri``); on a CUDA tensor it launches
 ``csrc/stream_scan.cu``, the ``StreamReader`` instances of ``rx_dense``
-(n <= 512) and ``rx_hybrid`` (n = 1024 ... 4096).  Each launch adds one to
-``STREAM_LAUNCHES`` and to ``KERNEL_LAUNCHES``.  Its domain on the card is
-the JAX kernel's: ``osr | stride``, ``stride | step`` and n <= 4096, any
-number of leading stream axes; outside it the wrapper raises
+(n <= 512) and ``rx_hybrid`` (n = 1024 ... 4096).  The launch path runs in
+the span ``lora.kernel.stream_scan``, and each launch adds one to
+``COUNTS["launch.stream_scan"]`` (``utils/spans.py``).  Its domain on the
+card is the JAX kernel's: ``osr | stride``, ``stride | step`` and n <=
+4096, any number of leading stream axes; outside it the wrapper raises
 ``InvalidArgumentError``.
 
 Kernel note.  Replaces ``ops/pallas_stream.py:_stream_kernel``.  The TPU
@@ -47,16 +48,15 @@ import torch
 from ..utils import cuda_build
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import count, span
 from ..utils.tensors import device_table
 from .cuda_rx import _checked, _fft_tables
 from .detect import detect_ri
 
 __all__ = ["stream_window_detect", "stream_window_detect_ref",
-           "STREAM_LAUNCHES", "KERNEL_LAUNCHES", "STREAM_MAX_N"]
+           "STREAM_MAX_N"]
 
 STREAM_MAX_N = 4096       # PALLAS_STREAM_MAX_N
-STREAM_LAUNCHES = 0
-KERNEL_LAUNCHES = 0       # = STREAM_LAUNCHES
 
 
 def _down_chirp(params: LoraParams, dcr, dci, device):
@@ -99,44 +99,45 @@ def stream_window_detect(ext_r, ext_i, params: LoraParams, stride: int,
     be contiguous float32, with ``osr | stride``, ``stride | step`` and
     n <= 4096 (else ``InvalidArgumentError``).
     """
-    global STREAM_LAUNCHES, KERNEL_LAUNCHES
     if not ext_r.is_cuda:
         return stream_window_detect_ref(ext_r, ext_i, params, stride,
                                         windows, dcr, dci)
-    n, osr, step = params.n, params.osr, params.step
-    if stride < 1 or stride % osr or step % stride or n > STREAM_MAX_N:
-        raise InvalidArgumentError(
-            f"the stream kernel takes osr | stride | step and n <= "
-            f"{STREAM_MAX_N}, got stride {stride}, osr {osr}, step {step}, "
-            f"n {n}")
-    dev = ext_r.device
-    lead = tuple(ext_r.shape[:-1])
-    length = ext_r.shape[-1]
-    sr = _checked(ext_r, "ext_r", torch.float32, lead + (length,), dev)
-    si = _checked(ext_i, "ext_i", torch.float32, lead + (length,), dev)
-    mr, mi = _down_chirp(params, dcr, dci, dev)
-    mr = _checked(mr, "dcr", torch.float32, (n,), dev)
-    mi = _checked(mi, "dci", torch.float32, (n,), dev)
-    bsz = int(np.prod(lead)) if lead else 1
-    if bsz * windows >= 2 ** 31:
-        raise ValueError(f"{bsz * windows} windows exceed the kernel's "
-                         "32-bit window indexing")
-    idx = torch.empty(lead + (windows,), dtype=torch.int32, device=dev)
-    pw = torch.empty(lead + (windows,), dtype=torch.float32, device=dev)
-    pav = torch.empty(lead + (windows,), dtype=torch.float32, device=dev)
-    if bsz == 0 or windows <= 0:
+    with span("lora.kernel.stream_scan"):
+        n, osr, step = params.n, params.osr, params.step
+        if stride < 1 or stride % osr or step % stride or n > STREAM_MAX_N:
+            raise InvalidArgumentError(
+                f"the stream kernel takes osr | stride | step and n <= "
+                f"{STREAM_MAX_N}, got stride {stride}, osr {osr}, step "
+                f"{step}, n {n}")
+        dev = ext_r.device
+        lead = tuple(ext_r.shape[:-1])
+        length = ext_r.shape[-1]
+        plane = lead + (length,)
+        sr = _checked(ext_r, "ext_r", torch.float32, plane, dev)
+        si = _checked(ext_i, "ext_i", torch.float32, plane, dev)
+        mr, mi = _down_chirp(params, dcr, dci, dev)
+        mr = _checked(mr, "dcr", torch.float32, (n,), dev)
+        mi = _checked(mi, "dci", torch.float32, (n,), dev)
+        bsz = int(np.prod(lead)) if lead else 1
+        if bsz * windows >= 2 ** 31:
+            raise ValueError(f"{bsz * windows} windows exceed the kernel's "
+                             "32-bit window indexing")
+        idx = torch.empty(lead + (windows,), dtype=torch.int32, device=dev)
+        pw = torch.empty(lead + (windows,), dtype=torch.float32, device=dev)
+        pav = torch.empty(lead + (windows,), dtype=torch.float32, device=dev)
+        if bsz == 0 or windows <= 0:
+            return idx, pw, pav
+        tw, bins = device_table(_fft_tables, n, device=dev)
+        scale_db = float(np.float32(20.0 * np.log10(n)))
+        lib = cuda_build.load()
+        with torch.cuda.device(dev):
+            err = lib.lora_stream_scan(
+                sr.data_ptr(), si.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+                tw.data_ptr(), bins.data_ptr(), bsz, length, windows, stride,
+                n, osr, scale_db, idx.data_ptr(), pw.data_ptr(),
+                pav.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(
+                f"lora_stream_scan launch failed: cudaError_t {err}")
+        count("launch.stream_scan")
         return idx, pw, pav
-    tw, bins = device_table(_fft_tables, n, device=dev)
-    scale_db = float(np.float32(20.0 * np.log10(n)))
-    lib = cuda_build.load()
-    with torch.cuda.device(dev):
-        err = lib.lora_stream_scan(
-            sr.data_ptr(), si.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            tw.data_ptr(), bins.data_ptr(), bsz, length, windows, stride, n,
-            osr, scale_db, idx.data_ptr(), pw.data_ptr(), pav.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lora_stream_scan launch failed: cudaError_t {err}")
-    STREAM_LAUNCHES += 1
-    KERNEL_LAUNCHES += 1
-    return idx, pw, pav

@@ -43,10 +43,10 @@ k``), bit-equal to the JAX package's S*bs rows.
 runs ``tx_tone_synth_ref``, the same arithmetic in PyTorch; on a CUDA tensor
 it launches ``csrc/tx_dense.cu`` (osr == 1, n <= 512), ``csrc/
 tx_factored.cu`` (osr == 1, n = 1024 ... 4096) or ``csrc/tx_osr.cu`` (osr >
-1, 128 <= q <= 4096), built by ``utils/cuda_build.py``, or raises.  Each
-launch adds one to its kernel's count (``DENSE_LAUNCHES``,
-``FACTORED_LAUNCHES`` or ``OSR_LAUNCHES``) and to their sum
-``KERNEL_LAUNCHES``.
+1, 128 <= q <= 4096), built by ``utils/cuda_build.py``, or raises.  The
+launch path runs in the span ``lora.kernel.<kernel>``, and each launch adds
+one to ``COUNTS["launch.<kernel>"]`` (``utils/spans.py``), the kernel being
+``tx_dense``, ``tx_factored`` or ``tx_osr``.
 
 Kernel note.  Replaces ``ops/pallas_tx.py:_tx_kernel``,
 ``ops/pallas_tx.py:_tx_kernel_factored`` and
@@ -67,22 +67,18 @@ import torch
 from ..utils import cuda_build
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import count, span
 from ..utils.tensors import device_table, int_tensor
 from .chirp import (_tx_base_chirp, _tx_tone_tables, _tx_tone_tables_factored,
                     downchirp_ri)
 
 __all__ = ["tx_supported", "tx_tone_synth", "tx_tone_synth_ref",
-           "KERNEL_LAUNCHES", "DENSE_LAUNCHES", "FACTORED_LAUNCHES",
-           "OSR_LAUNCHES", "TX_DENSE_MAX_N", "TX_MAX_N", "TX_OSR_MIN_Q"]
+           "TX_DENSE_MAX_N", "TX_MAX_N", "TX_OSR_MIN_Q"]
 
 TX_DENSE_MAX_N = 512      # dense (n, n) tone tables (pallas_tx.PALLAS_TX_MAX_N)
 TX_MAX_N = 4096           # factored digit tables (PALLAS_TX_MAX_N_FACTORED)
 TX_OSR_MIN_Q = 128        # osr > 1: tone modulus q in [128, 4096]
 TX_N2 = 128               # the factored form's second digit base
-DENSE_LAUNCHES = 0
-FACTORED_LAUNCHES = 0
-OSR_LAUNCHES = 0
-KERNEL_LAUNCHES = 0       # DENSE_ + FACTORED_ + OSR_LAUNCHES
 
 
 def tx_supported(n: int, osr: int, bw_scale: int = 1) -> bool:
@@ -304,72 +300,70 @@ def tx_tone_synth(symbols_with_sync, params: LoraParams,
     ``csrc/tx_osr.cu`` (osr > 1, 128 <= q <= 4096), and raises
     ``InvalidArgumentError`` outside that domain.
     """
-    global KERNEL_LAUNCHES, DENSE_LAUNCHES, FACTORED_LAUNCHES, OSR_LAUNCHES
     sym = int_tensor(symbols_with_sync, torch.int32)
     if not sym.is_cuda:
         return tx_tone_synth_ref(sym, params, amplitude, dechirp)
-    _require_supported(params)
     n, bs, osr = params.n, params.bw_scale, params.osr
-    amp = _amp(amplitude)
-    sym = sym.contiguous()
-    dev = sym.device
-    lead, s_total = sym.shape[:-1], sym.shape[-1]
-    rows = sym.numel()
-    if rows * (bs if osr > 1 else 1) >= 2 ** 31:
-        raise ValueError(f"{rows} symbol rows exceed the kernels' 32-bit "
-                         "row indexing")
-    out = lead + (s_total * params.step,)
-    re = torch.empty(out, dtype=torch.float32, device=dev)
-    im = torch.empty(out, dtype=torch.float32, device=dev)
-    if rows == 0:
-        return re, im
-    lib = cuda_build.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if osr > 1:
-        name = "lora_tx_osr"
-        q = n * osr // bs
-        if q <= TX_DENSE_MAX_N:
-            tabs = device_table(_tx_tone_tables, q, device=dev) + (None, None)
+    kernel = ("tx_osr" if osr > 1 else
+              "tx_dense" if n <= TX_DENSE_MAX_N else "tx_factored")
+    with span("lora.kernel." + kernel):
+        _require_supported(params)
+        amp = _amp(amplitude)
+        sym = sym.contiguous()
+        dev = sym.device
+        lead, s_total = sym.shape[:-1], sym.shape[-1]
+        rows = sym.numel()
+        if rows * (bs if osr > 1 else 1) >= 2 ** 31:
+            raise ValueError(f"{rows} symbol rows exceed the kernels' "
+                             "32-bit row indexing")
+        out = lead + (s_total * params.step,)
+        re = torch.empty(out, dtype=torch.float32, device=dev)
+        im = torch.empty(out, dtype=torch.float32, device=dev)
+        if rows == 0:
+            return re, im
+        lib = cuda_build.load()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kernel == "tx_osr":
+            q = n * osr // bs
+            if q <= TX_DENSE_MAX_N:
+                tabs = (device_table(_tx_tone_tables, q, device=dev)
+                        + (None, None))
+            else:
+                tabs = device_table(_tx_digit_tables, q, device=dev)
+            mr, mi, wtc, wts = device_table(_tx_osr_mult, params.sf, bs,
+                                            osr, amp, bool(dechirp),
+                                            device=dev)
+            ptr = [None if t is None else t.data_ptr() for t in tabs]
+            with torch.cuda.device(dev):
+                err = lib.lora_tx_osr(
+                    sym.data_ptr(), rows, s_total, q, bs, osr,
+                    _carry_period(params.sf, bs, osr), int(bool(bs % osr)),
+                    *ptr, wtc.data_ptr(), wts.data_ptr(), mr.data_ptr(),
+                    mi.data_ptr(), re.data_ptr(), im.data_ptr(), stream)
+        elif kernel == "tx_dense":
+            wc2, ws2 = device_table(_tx_tables, n, bs, amp, bool(dechirp),
+                                    device=dev)
+            with torch.cuda.device(dev):
+                err = lib.lora_tx_dense(
+                    sym.data_ptr(), rows, s_total, n, bs, _alt_sign(bs, n),
+                    wc2.data_ptr(), ws2.data_ptr(), re.data_ptr(),
+                    im.data_ptr(), stream)
         else:
-            tabs = device_table(_tx_digit_tables, q, device=dev)
-        mr, mi, wtc, wts = device_table(_tx_osr_mult, params.sf, bs, osr,
-                                        amp, bool(dechirp), device=dev)
-        ptr = [None if t is None else t.data_ptr() for t in tabs]
-        with torch.cuda.device(dev):
-            err = lib.lora_tx_osr(
-                sym.data_ptr(), rows, s_total, q, bs, osr,
-                _carry_period(params.sf, bs, osr), int(bool(bs % osr)),
-                *ptr, wtc.data_ptr(), wts.data_ptr(), mr.data_ptr(),
-                mi.data_ptr(), re.data_ptr(), im.data_ptr(), stream)
-    elif n <= TX_DENSE_MAX_N:
-        name = "lora_tx_dense"
-        wc2, ws2 = device_table(_tx_tables, n, bs, amp, bool(dechirp),
-                                device=dev)
-        with torch.cuda.device(dev):
-            err = lib.lora_tx_dense(
-                sym.data_ptr(), rows, s_total, n, bs, _alt_sign(bs, n),
-                wc2.data_ptr(), ws2.data_ptr(), re.data_ptr(), im.data_ptr(),
-                stream)
-    else:
-        name = "lora_tx_factored"
-        w1c, w1s, w2c, w2s = device_table(_tx_digit_tables, n, device=dev)
-        mr, mi = device_table(_tx_mult, n, bs, amp, bool(dechirp), device=dev)
-        with torch.cuda.device(dev):
-            err = lib.lora_tx_factored(
-                sym.data_ptr(), rows, s_total, n, bs, _alt_sign(bs, n),
-                w1c.data_ptr(), w1s.data_ptr(), w2c.data_ptr(),
-                w2s.data_ptr(), mr.data_ptr(), mi.data_ptr(), re.data_ptr(),
-                im.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    KERNEL_LAUNCHES += 1
-    if name == "lora_tx_osr":
-        OSR_LAUNCHES += 1
-    elif name == "lora_tx_dense":
-        DENSE_LAUNCHES += 1
-    else:
-        FACTORED_LAUNCHES += 1
-    return re, im
+            w1c, w1s, w2c, w2s = device_table(_tx_digit_tables, n,
+                                              device=dev)
+            mr, mi = device_table(_tx_mult, n, bs, amp, bool(dechirp),
+                                  device=dev)
+            with torch.cuda.device(dev):
+                err = lib.lora_tx_factored(
+                    sym.data_ptr(), rows, s_total, n, bs, _alt_sign(bs, n),
+                    w1c.data_ptr(), w1s.data_ptr(), w2c.data_ptr(),
+                    w2s.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+                    re.data_ptr(), im.data_ptr(), stream)
+        if err:
+            raise RuntimeError(
+                f"lora_{kernel} launch failed: cudaError_t {err}")
+        count("launch." + kernel)
+        return re, im
 
 
 def _alt_sign(bs: int, n: int) -> int:

@@ -46,7 +46,17 @@ all_reduce over ``axis``): no rank gathers the stream or the packet
 bodies.  Every rank returns the one-device result, and the new state's
 tail, gathered from the ranks that hold the last ``plen`` samples, is the
 same on every rank.  Three collectives a chunk, whose bytes
-``streaming.COLLECTIVE_BYTES`` counts.
+``COUNTS["collective_bytes.<halo|scan|results>"]`` counts
+(``utils/spans.py``).
+
+**Stages.**  Under a ``torch.profiler`` session each call is the span
+``lora.receive_stream`` (``lora.receive_stream_frames``) holding, in order,
+``lora.rx.extend`` ([tail | chunk], the halo gather on a mesh),
+``lora.rx.scan``, ``lora.rx.select`` (start finding, ownership, the first
+``max_packets``), ``lora.rx.extract`` (the packets' rows and their
+dechirp), the demodulator's ``lora.rx.demod``, the decoder's
+``lora.codec.*`` and ``lora.rx.outputs`` (the masked records and the new
+state).
 
 The JAX package counts samples in int32 (its offset wraps after 2^31
 samples, about 4.8 hours at 125 kHz); the port counts them in int64.
@@ -64,6 +74,7 @@ from ..models.modem import decode, dechirp, demodulate_wide
 from ..models.tones import demodulate_tones
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import span, spanned
 from ..utils.tensors import host_device
 from ..ops.cuda_stream import stream_window_detect
 from .streaming import (StreamScan, _all_gather, all_reduce, axis_size,
@@ -107,8 +118,11 @@ def stream_rx_init(params: LoraParams, payload_symbols: int,
     """Fresh state: a zero tail (no samples seen yet), on ``device`` (the
     CUDA card unless the caller names another, ``utils/tensors.py::
     host_device``)."""
-    dev = host_device(device)
-    plen = packet_samples(params, payload_symbols)
+    return _zero_state(packet_samples(params, payload_symbols),
+                       host_device(device))
+
+
+def _zero_state(plen: int, dev) -> StreamRxState:
     return StreamRxState(
         tail_r=torch.zeros(plen, dtype=torch.float32, device=dev),
         tail_i=torch.zeros(plen, dtype=torch.float32, device=dev),
@@ -249,20 +263,25 @@ def _owned_starts(ext: _Ext, chunk_len: int, plen: int, params: LoraParams,
     tie between sentinels is harmless.
     """
     ext_len = plen + chunk_len
-    if mesh is None:
-        scan = stream_scan(ext.r, ext.i, params, stride=stride)
-    else:
-        scan = _gathered_scan(ext, plen, params, mesh, axis, stride)
-    mask, start = find_packet_starts(scan, params, stride=stride,
-                                     power_gate_db=power_gate_db,
-                                     dedupe_tol=dedupe_tol, max_mis=max_mis)
-    owned = mask & (start > 0) & (start <= chunk_len)
-    sentinel = ext_len + 1
-    cand = torch.where(owned, start, sentinel)
-    starts = torch.topk(cand, max_packets, largest=False, sorted=True).values
-    valid = starts < sentinel
-    starts_c = torch.clamp(torch.where(valid, starts, 0), 0, ext_len - plen)
-    return starts_c, valid, owned.sum(dtype=torch.int32)
+    with span("lora.rx.scan"):
+        if mesh is None:
+            scan = stream_scan(ext.r, ext.i, params, stride=stride)
+        else:
+            scan = _gathered_scan(ext, plen, params, mesh, axis, stride)
+    with span("lora.rx.select"):
+        mask, start = find_packet_starts(scan, params, stride=stride,
+                                         power_gate_db=power_gate_db,
+                                         dedupe_tol=dedupe_tol,
+                                         max_mis=max_mis)
+        owned = mask & (start > 0) & (start <= chunk_len)
+        sentinel = ext_len + 1
+        cand = torch.where(owned, start, sentinel)
+        starts = torch.topk(cand, max_packets, largest=False,
+                            sorted=True).values
+        valid = starts < sentinel
+        starts_c = torch.clamp(torch.where(valid, starts, 0), 0,
+                               ext_len - plen)
+        return starts_c, valid, owned.sum(dtype=torch.int32)
 
 
 def _into_slots(fields: dict, rows, slots: int, mesh, axis: str) -> dict:
@@ -298,32 +317,36 @@ def _demod_owned(ext: _Ext, starts_c, valid, plen: int, params: LoraParams,
     mesh, the valid ones whose start lies in its block), dechirp and
     demodulate them, and decode them with ``finish(DemodResult) -> {field:
     (k, ...) tensor}``.  Returns the fields in the K slots."""
-    if mesh is None:
-        rows, pos = None, starts_c
-    else:
-        mine = valid & (starts_c >= ext.lo) & (starts_c < ext.lo + ext.owned)
-        rows = torch.nonzero(mine).flatten()
-        pos = starts_c[rows] - ext.lo
-    # each packet is a row of the overlapping (len - plen + 1, plen) view
-    # of the samples: one gather of k * plen samples
-    pkt_r = ext.r.unfold(0, plen, 1).index_select(0, pos)
-    pkt_i = ext.i.unfold(0, plen, 1).index_select(0, pos)
-    dr, di = dechirp(pkt_r, pkt_i, params)
+    with span("lora.rx.extract"):
+        if mesh is None:
+            rows, pos = None, starts_c
+        else:
+            mine = (valid & (starts_c >= ext.lo)
+                    & (starts_c < ext.lo + ext.owned))
+            rows = torch.nonzero(mine).flatten()
+            pos = starts_c[rows] - ext.lo
+        # each packet is a row of the overlapping (len - plen + 1, plen)
+        # view of the samples: one gather of k * plen samples
+        pkt_r = ext.r.unfold(0, plen, 1).index_select(0, pos)
+        pkt_i = ext.i.unfold(0, plen, 1).index_select(0, pos)
+        dr, di = dechirp(pkt_r, pkt_i, params)
     fields = finish((demodulate_wide if wide else demodulate_tones)(
         dr, di, params))
     if mesh is None:
         return fields
-    return _into_slots(fields, rows, starts_c.shape[0], mesh, axis)
+    with span("lora.rx.outputs"):
+        return _into_slots(fields, rows, starts_c.shape[0], mesh, axis)
 
 
-def _chunk_front(iq_r, iq_i, params: LoraParams, plen: int, state, mesh,
-                 axis: str, stride: int, power_gate_db: float,
-                 max_packets: int, wide: bool, what: str, finish):
-    """The part both receivers share: check the chunk, scan [tail | chunk],
-    pick the owned starts, extract each packet (``plen`` samples),
-    demodulate and decode it (``finish``).  Returns (owned starts clamped
-    for extraction, valid, owned-candidate count, decoded fields in the K
-    slots, new state)."""
+def _receive(iq_r, iq_i, params: LoraParams, plen: int, state, mesh,
+             axis: str, stride: int, power_gate_db: float, max_packets: int,
+             wide: bool, what: str, finish, pack):
+    """What both receivers share: check the chunk, scan [tail | chunk]
+    (from a zero tail when ``state`` is None), pick the owned starts,
+    extract each packet (``plen`` samples), demodulate and decode it
+    (``finish(DemodResult) -> {field: (K, ...) tensor}``), and make the
+    outputs, ``pack(valid, fields, global starts, owned-candidate count)``.
+    Returns (outputs, new state)."""
     if iq_r.ndim != 1:
         raise InvalidArgumentError(
             f"the streaming receivers take one stream, float32 (L,) planes; "
@@ -345,16 +368,21 @@ def _chunk_front(iq_r, iq_i, params: LoraParams, plen: int, state, mesh,
 
     # extended stream: [prev tail | chunk]; ext position p <-> global
     # sample g = p + offset - plen
-    ext, tail_r, tail_i = _extend(iq_r, iq_i, state, plen, mesh, axis)
+    with span("lora.rx.extend"):
+        if state is None:
+            state = _zero_state(plen, iq_r.device)
+        ext, tail_r, tail_i = _extend(iq_r, iq_i, state, plen, mesh, axis)
     starts_c, valid, n_candidates = _owned_starts(
         ext, chunk_len, plen, params, mesh, axis, stride, power_gate_db,
         max_packets, dedupe_tol=max(2, params.osr) if wide else 2,
         max_mis=_wide_max_mis(params, stride) if wide else None)
     fields = _demod_owned(ext, starts_c, valid, plen, params, wide, mesh,
                           axis, finish)
-    new_state = StreamRxState(tail_r=tail_r, tail_i=tail_i,
-                              offset=state.offset + chunk_len)
-    return starts_c, valid, n_candidates, fields, new_state
+    with span("lora.rx.outputs"):
+        out = pack(valid, fields, starts_c + state.offset - plen,
+                   n_candidates)
+        return out, StreamRxState(tail_r=tail_r, tail_i=tail_i,
+                                  offset=state.offset + chunk_len)
 
 
 def _masked(valid, x):
@@ -368,6 +396,7 @@ def _demod_fields(res) -> dict:
             "time_offset": res.time_offset}
 
 
+@spanned("lora.receive_stream")
 def receive_stream(iq_r, iq_i, params: LoraParams, *,
                    payload_symbols: int, max_packets: int,
                    state: StreamRxState | None = None,
@@ -409,29 +438,29 @@ def receive_stream(iq_r, iq_i, params: LoraParams, *,
     if stride is None:
         stride = _default_stride(params, wide)
     plen = packet_samples(params, payload_symbols)
-    if state is None:
-        state = stream_rx_init(params, payload_symbols, device=iq_r.device)
 
     def finish(res):
         payload, crc_ok = decode(res.symbols)
         return {"payload": payload, "crc_ok": crc_ok, **_demod_fields(res)}
-    starts_c, valid, n_candidates, f, new_state = _chunk_front(
-        iq_r, iq_i, params, plen, state, mesh, axis, stride, power_gate_db,
-        max_packets, wide, "packet length", finish)
-    packets = RecoveredPackets(
-        payload=_masked(valid, f["payload"]),
-        crc_ok=f["crc_ok"] & valid,
-        valid=valid,
-        start=starts_c + state.offset - plen,
-        sync_word=_masked(valid, f["sync_word"]),
-        cfo=_masked(valid, f["cfo"]),
-        time_offset=_masked(valid, f["time_offset"]),
-        n_candidates=n_candidates,
-        n_dropped=torch.clamp(n_candidates - max_packets, min=0),
-    )
-    return packets, new_state
+
+    def pack(valid, f, start, n_candidates):
+        return RecoveredPackets(
+            payload=_masked(valid, f["payload"]),
+            crc_ok=f["crc_ok"] & valid,
+            valid=valid,
+            start=start,
+            sync_word=_masked(valid, f["sync_word"]),
+            cfo=_masked(valid, f["cfo"]),
+            time_offset=_masked(valid, f["time_offset"]),
+            n_candidates=n_candidates,
+            n_dropped=torch.clamp(n_candidates - max_packets, min=0),
+        )
+    return _receive(iq_r, iq_i, params, plen, state, mesh, axis, stride,
+                    power_gate_db, max_packets, wide, "packet length",
+                    finish, pack)
 
 
+@spanned("lora.receive_stream_frames")
 def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
                           max_payload_len: int, max_packets: int,
                           crc: bool = True,
@@ -464,29 +493,27 @@ def receive_stream_frames(iq_r, iq_i, params: LoraParams, *,
         stride = _default_stride(params, wide)
     s_max = frame_codec.max_frame_symbols(params, max_payload_len, crc)
     plen = packet_samples(params, s_max)
-    if state is None:
-        state = stream_frames_init(params, max_payload_len, crc,
-                                   device=iq_r.device)
 
     def finish(res):
         dec = frame_codec.decode_frame_padded(res.symbols, params,
                                               max_payload_len, crc)
         return {**dec._asdict(), **_demod_fields(res)}
-    starts_c, valid, n_candidates, f, new_state = _chunk_front(
-        iq_r, iq_i, params, plen, state, mesh, axis, stride, power_gate_db,
-        max_packets, wide, "max frame length", finish)
-    frames = RecoveredFrames(
-        payload=_masked(valid, f["payload"]),
-        length=_masked(valid, f["length"]),
-        hdr_ok=f["hdr_ok"] & valid,
-        crc_ok=f["crc_ok"] & valid,
-        valid=valid,
-        start=starts_c + state.offset - plen,
-        sync_word=_masked(valid, f["sync_word"]),
-        cfo=_masked(valid, f["cfo"]),
-        time_offset=_masked(valid, f["time_offset"]),
-        n_err=_masked(valid, f["n_err"]),
-        n_candidates=n_candidates,
-        n_dropped=torch.clamp(n_candidates - max_packets, min=0),
-    )
-    return frames, new_state
+
+    def pack(valid, f, start, n_candidates):
+        return RecoveredFrames(
+            payload=_masked(valid, f["payload"]),
+            length=_masked(valid, f["length"]),
+            hdr_ok=f["hdr_ok"] & valid,
+            crc_ok=f["crc_ok"] & valid,
+            valid=valid,
+            start=start,
+            sync_word=_masked(valid, f["sync_word"]),
+            cfo=_masked(valid, f["cfo"]),
+            time_offset=_masked(valid, f["time_offset"]),
+            n_err=_masked(valid, f["n_err"]),
+            n_candidates=n_candidates,
+            n_dropped=torch.clamp(n_candidates - max_packets, min=0),
+        )
+    return _receive(iq_r, iq_i, params, plen, state, mesh, axis, stride,
+                    power_gate_db, max_packets, wide, "max frame length",
+                    finish, pack)

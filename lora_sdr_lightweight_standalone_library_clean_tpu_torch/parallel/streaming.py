@@ -36,16 +36,10 @@ from ..ops.chirp import downchirp_ri
 from ..ops.cuda_stream import stream_window_detect
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
+from ..utils.spans import count
 
 __all__ = ["StreamScan", "stream_scan", "find_sync_starts",
            "find_packet_starts"]
-
-# Bytes this rank has put into collectives, by what they carry: "halo" (the
-# leading and trailing samples of its block), "scan" (its windows'
-# detections, gathered before the packet search), "results" (the decoded
-# fields of the packets it owns).  An all_gather counts this rank's
-# contribution, an all_reduce its buffer.
-COLLECTIVE_BYTES = {"halo": 0, "scan": 0, "results": 0}
 
 
 class StreamScan(NamedTuple):
@@ -103,20 +97,27 @@ def _stride_windows(ext, total: int, step: int, stride: int, n: int,
 
 def _all_gather(x, mesh: DeviceMesh, axis: str, kind: str) -> list:
     """``dist.all_gather`` of ``x`` over the ranks of ``axis``, in their
-    order; adds the bytes of ``x`` to ``COLLECTIVE_BYTES[kind]``."""
+    order; adds the bytes of ``x`` to ``COUNTS["collective_bytes.<kind>"]``
+    (``utils/spans.py``).
+
+    The kinds are what a collective carries: ``halo`` (the leading and
+    trailing samples of this rank's block), ``scan`` (its windows'
+    detections, gathered before the packet search), ``results`` (the
+    decoded fields of the packets it owns).  An all_gather counts this
+    rank's contribution, an all_reduce its buffer."""
     out = [torch.empty_like(x)
            for _ in range(axis_size(mesh, axis))]
     dist.all_gather(out, x.contiguous(), group=mesh.get_group(axis))
-    COLLECTIVE_BYTES[kind] += x.numel() * x.element_size()
+    count("collective_bytes." + kind, x.numel() * x.element_size())
     return out
 
 
 def all_reduce(x, mesh: DeviceMesh, axis: str, kind: str) -> None:
     """In-place sum of ``x`` over the ranks of ``axis``; adds its bytes to
-    ``COLLECTIVE_BYTES[kind]``."""
+    ``COUNTS["collective_bytes.<kind>"]`` (``_all_gather``)."""
     axis_size(mesh, axis)
     dist.all_reduce(x, group=mesh.get_group(axis))
-    COLLECTIVE_BYTES[kind] += x.numel() * x.element_size()
+    count("collective_bytes." + kind, x.numel() * x.element_size())
 
 
 def axis_size(mesh, axis: str) -> int:

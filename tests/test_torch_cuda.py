@@ -27,6 +27,8 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
     cuda_detect, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
+from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (
+    COUNTS)
 
 torch.set_num_threads(1)
 
@@ -34,6 +36,13 @@ pytestmark = pytest.mark.cuda
 
 VEC_DIR = Path(__file__).parent / "vectors"
 FIXTURES = sorted(VEC_DIR.glob("ref_sf*.npz"))
+
+
+def _launches(prefix: str) -> int:
+    """Launches so far of the kernels whose name starts with ``prefix``
+    (``COUNTS["launch.<kernel>"]``)."""
+    return sum(v for k, v in COUNTS.items()
+               if k.startswith("launch." + prefix))
 
 
 @pytest.fixture
@@ -68,13 +77,12 @@ def test_tx_kernel_matches_plain_on_card(cuda_device, sf, bw):
     rng = np.random.default_rng(sf)
     syms = torch.as_tensor(rng.integers(0, p.n, (16, 32)), device=cuda_device)
     allsyms = _with_sync_prelude(syms, p)
-    count = "DENSE_LAUNCHES" if sf <= 9 else "FACTORED_LAUNCHES"
+    count = "launch.tx_dense" if sf <= 9 else "launch.tx_factored"
     for dechirp in (False, True):
-        before = cuda_tx.KERNEL_LAUNCHES
-        own = getattr(cuda_tx, count)
+        before, own = _launches("tx_"), COUNTS[count]
         gr, gi = cuda_tx.tx_tone_synth(allsyms, p, 0.75, dechirp=dechirp)
-        assert cuda_tx.KERNEL_LAUNCHES == before + 1
-        assert getattr(cuda_tx, count) == own + 1
+        assert _launches("tx_") == before + 1
+        assert COUNTS[count] == own + 1
         wr, wi = cuda_tx.tx_tone_synth_ref(allsyms, p, 0.75, dechirp=dechirp)
         torch.cuda.synchronize()
         assert float((gr - wr).abs().max()) <= 4e-6
@@ -89,12 +97,11 @@ def test_rx_kernel_matches_plain_on_card(cuda_device, sf):
             for a in _rx_inputs(p, sf)]
     args += [torch.ones(p.n, device=cuda_device),
              torch.zeros(p.n, device=cuda_device), p]
-    count = "DENSE_LAUNCHES" if sf <= 9 else "HYBRID_LAUNCHES"
-    before = cuda_rx.KERNEL_LAUNCHES
-    own = getattr(cuda_rx, count)
+    count = "launch.rx_dense" if sf <= 9 else "launch.rx_hybrid"
+    before, own = _launches("rx_"), COUNTS[count]
     gi, gp, ga = cuda_rx.rx_window_detect(*args)
-    assert cuda_rx.KERNEL_LAUNCHES == before + 1
-    assert getattr(cuda_rx, count) == own + 1
+    assert _launches("rx_") == before + 1
+    assert COUNTS[count] == own + 1
     wi, wp, wa = cuda_rx.rx_window_detect_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(gi, wi)
@@ -161,10 +168,10 @@ def test_rx_kernel_index_and_tie_cases_on_card(cuda_device, n):
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.zeros(1, device=dev), torch.ones(1, device=dev),
             torch.ones(n, device=dev), torch.zeros(n, device=dev), p]
-    count = "DENSE_LAUNCHES" if n <= 512 else "HYBRID_LAUNCHES"
-    own = getattr(cuda_rx, count)
+    count = "launch.rx_dense" if n <= 512 else "launch.rx_hybrid"
+    own = COUNTS[count]
     got = cuda_rx.rx_window_detect(*args, **kw)
-    assert getattr(cuda_rx, count) == own + 1
+    assert COUNTS[count] == own + 1
     want = cuda_rx.rx_window_detect_ref(*args, **kw)
     torch.cuda.synchronize()
     _assert_edge_detections(got, want, tones, 8)
@@ -204,10 +211,10 @@ def test_tx_osr_kernel_matches_plain_on_card(cuda_device, sf, bw, osr):
                            device=cuda_device)
     allsyms = _with_sync_prelude(syms, p)
     for dechirp in (False, True):
-        before, own = cuda_tx.KERNEL_LAUNCHES, cuda_tx.OSR_LAUNCHES
+        before, own = _launches("tx_"), COUNTS["launch.tx_osr"]
         gr, gi = cuda_tx.tx_tone_synth(allsyms, p, 0.75, dechirp=dechirp)
-        assert cuda_tx.KERNEL_LAUNCHES == before + 1
-        assert cuda_tx.OSR_LAUNCHES == own + 1
+        assert _launches("tx_") == before + 1
+        assert COUNTS["launch.tx_osr"] == own + 1
         wr, wi = cuda_tx.tx_tone_synth_ref(allsyms, p, 0.75, dechirp=dechirp)
         torch.cuda.synchronize()
         assert float((gr - wr).abs().max()) <= 4e-6
@@ -221,10 +228,10 @@ def _rx_kernel_vs_plain(cuda_device, p, seed, count, mults, packets=16,
     for mr, mi in mults:
         call = args + [torch.as_tensor(mr, device=cuda_device),
                        torch.as_tensor(mi, device=cuda_device), p]
-        before, own = cuda_rx.KERNEL_LAUNCHES, getattr(cuda_rx, count)
+        before, own = _launches("rx_"), COUNTS[count]
         gi, gp, ga = cuda_rx.rx_window_detect(*call, **kw)
-        assert cuda_rx.KERNEL_LAUNCHES == before + 1
-        assert getattr(cuda_rx, count) == own + 1
+        assert _launches("rx_") == before + 1
+        assert COUNTS[count] == own + 1
         wi, wp, wa = cuda_rx.rx_window_detect_ref(*call, **kw)
         torch.cuda.synchronize()
         assert torch.equal(gi, wi)
@@ -240,7 +247,7 @@ def test_rx_osr_kernel_matches_plain_on_card(cuda_device, sf, osr):
     p = T.LoraParams(sf=sf, osr=osr)
     hann = T.models.modem.window_table(p.n, T.Window.HANN)
     zeros = np.zeros(p.n, np.float32)
-    _rx_kernel_vs_plain(cuda_device, p, sf * 10 + osr, "OSR_LAUNCHES",
+    _rx_kernel_vs_plain(cuda_device, p, sf * 10 + osr, "launch.rx_osr",
                         [(np.ones(p.n, np.float32), zeros), (hann, zeros)],
                         packets=8)
 
@@ -250,7 +257,7 @@ def test_rx_halo_kernel_matches_plain_on_card(cuda_device, halo):
     """#6's halo variant on the wide sf9/BW250/osr2 grid through rx_osr."""
     p = T.LoraParams(sf=9, bw=250000, osr=2)
     w = np.repeat(T.models.modem.window_table(p.n, T.Window.HANN), 2)
-    _rx_kernel_vs_plain(cuda_device, p, 91, "OSR_LAUNCHES",
+    _rx_kernel_vs_plain(cuda_device, p, 91, "launch.rx_osr",
                         [(w, np.zeros(p.step, np.float32))], wide=True,
                         halo=halo)
 
@@ -259,7 +266,7 @@ def test_rx_halo_kernel_matches_plain_on_card(cuda_device, halo):
 def test_rx_wide_kernel_matches_plain_on_card(cuda_device, sf, osr):
     """#5 at 8192 and 16384 points (the wide sf11/sf12 BW500 grids)."""
     p = T.LoraParams(sf=sf, bw=500000, osr=osr)
-    _rx_kernel_vs_plain(cuda_device, p, sf, "HYBRID_LAUNCHES",
+    _rx_kernel_vs_plain(cuda_device, p, sf, "launch.rx_hybrid",
                         [(np.ones(p.step, np.float32),
                           np.zeros(p.step, np.float32))], packets=4,
                         wide=True)
@@ -353,9 +360,9 @@ def test_demodulate_on_card_matches_cpu(cuda_device, path):
     out = []
     for dev in (cuda_device, torch.device("cpu")):
         rr, ri = T.from_complex(d["iq"][None], device=dev)
-        before = cuda_rx.KERNEL_LAUNCHES
+        before = _launches("rx_")
         res = T.demodulate(rr, ri, p)
-        assert cuda_rx.KERNEL_LAUNCHES == before + (dev.type == "cuda")
+        assert _launches("rx_") == before + (dev.type == "cuda")
         out.append(res)
     gpu, cpu = out
     mine = gpu.symbols.cpu().numpy()[0]
@@ -374,21 +381,20 @@ def test_cuda_input_never_falls_back(cuda_device):
     answer them."""
     p = T.LoraParams(sf=7, osr=2)
     syms = torch.zeros(1, 4, dtype=torch.int32, device=cuda_device)
-    calls = [
-        (lambda: T.modulate_dechirped(syms, p), cuda_tx, "OSR_LAUNCHES"),
-        (lambda: T.modulate(syms, p), cuda_tx, "OSR_LAUNCHES")]
+    calls = [(lambda: T.modulate_dechirped(syms, p), "tx_osr"),
+             (lambda: T.modulate(syms, p), "tx_osr")]
     z = torch.zeros(1, 4 * p.step, device=cuda_device)
-    calls += [(lambda: T.demodulate_tones(z, z, p), cuda_rx, "OSR_LAUNCHES"),
-              (lambda: T.demodulate(z, z, p), cuda_rx, "OSR_LAUNCHES")]
+    calls += [(lambda: T.demodulate_tones(z, z, p), "rx_osr"),
+              (lambda: T.demodulate(z, z, p), "rx_osr")]
     pw = T.LoraParams(sf=9, bw=250000, osr=2)
     zw = torch.zeros(1, 4 * pw.step, device=cuda_device)
-    calls += [(lambda: T.demodulate_wide(zw, zw, pw), cuda_rx,
-               "HYBRID_LAUNCHES")]
-    for call, mod, count in calls:
-        before, own = mod.KERNEL_LAUNCHES, getattr(mod, count)
+    calls += [(lambda: T.demodulate_wide(zw, zw, pw), "rx_hybrid")]
+    for call, kernel in calls:
+        family = kernel[:3]
+        before, own = _launches(family), COUNTS["launch." + kernel]
         call()
-        assert mod.KERNEL_LAUNCHES == before + 1
-        assert getattr(mod, count) == own + 1
+        assert _launches(family) == before + 1
+        assert COUNTS["launch." + kernel] == own + 1
 
 
 def test_rx_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -443,10 +449,10 @@ def test_stream_kernel_matches_plain_on_card(cuda_device, sf, osr,
     stride = p.step // stride_div
     r, i = _noisy_stream(p, 21, sf * 10 + osr, cuda_device)
     windows = r.shape[-1] // stride
-    before, own = cuda_stream.KERNEL_LAUNCHES, cuda_stream.STREAM_LAUNCHES
+    before, own = _launches(""), COUNTS["launch.stream_scan"]
     got = cuda_stream.stream_window_detect(r, i, p, stride, windows)
-    assert cuda_stream.KERNEL_LAUNCHES == before + 1
-    assert cuda_stream.STREAM_LAUNCHES == own + 1
+    assert _launches("") == before + 1
+    assert COUNTS["launch.stream_scan"] == own + 1
     want = cuda_stream.stream_window_detect_ref(r, i, p, stride, windows)
     torch.cuda.synchronize()
     _assert_scan_matches(got, want)
@@ -549,10 +555,10 @@ def test_rotate_detect_kernel_matches_plain_on_card(cuda_device, sf):
                              device=cuda_device)
         zi = torch.as_tensor((z.imag * w).astype(np.float32),
                              device=cuda_device)
-        before, own = cuda_detect.KERNEL_LAUNCHES, cuda_detect.DETECT_LAUNCHES
+        before, own = _launches(""), COUNTS["launch.rotate_detect"]
         gi, gp, ga = cuda_detect.fused_rotate_detect(zr, zi, rate, start)
-        assert cuda_detect.KERNEL_LAUNCHES == before + 1
-        assert cuda_detect.DETECT_LAUNCHES == own + 1
+        assert _launches("") == before + 1
+        assert COUNTS["launch.rotate_detect"] == own + 1
         wi, wp, wa = cuda_detect.fused_rotate_detect_ref(zr, zi, rate, start)
         torch.cuda.synchronize()
         assert torch.equal(gi, wi)
@@ -574,12 +580,12 @@ def test_backend_pallas_on_card_matches_cpu(cuda_device):
         syms = T.encode(torch.as_tensor(pay, device=dev))
         re, im = T.modulate(syms, p)
         dr, di = T.dechirp(re, im, p)
-        det, rx = cuda_detect.DETECT_LAUNCHES, cuda_rx.KERNEL_LAUNCHES
+        det, rx = COUNTS["launch.rotate_detect"], _launches("rx_")
         tones = T.demodulate_tones(dr, di, p, backend="pallas")
         full = T.demodulate(re, im, p, backend="pallas")
         on_card = dev.type == "cuda"
-        assert cuda_detect.DETECT_LAUNCHES == det + 2 * on_card
-        assert cuda_rx.KERNEL_LAUNCHES == rx
+        assert COUNTS["launch.rotate_detect"] == det + 2 * on_card
+        assert _launches("rx_") == rx
         auto = T.demodulate(re, im, p)
         assert torch.equal(full.symbols, auto.symbols)
         assert torch.equal(full.sync_word, auto.sync_word)
@@ -625,11 +631,11 @@ def test_receive_stream_on_card_matches_cpu(cuda_device):
         si[g:g + plen] += im[k].numpy()
     out = []
     for dev in (cuda_device, torch.device("cpu")):
-        before = cuda_stream.STREAM_LAUNCHES
+        before = COUNTS["launch.stream_scan"]
         pk, _ = T.receive_stream(torch.as_tensor(sr, device=dev),
                                  torch.as_tensor(si, device=dev), p,
                                  payload_symbols=16, max_packets=8)
-        assert cuda_stream.STREAM_LAUNCHES == before + (dev.type == "cuda")
+        assert COUNTS["launch.stream_scan"] == before + (dev.type == "cuda")
         out.append(pk)
     gpu, cpu = out
     for f in ("payload", "crc_ok", "valid", "start", "sync_word",

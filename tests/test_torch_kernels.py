@@ -37,6 +37,8 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import ( 
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (  # noqa: E402
     cuda_build, errors as terrors)
+from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (  # noqa: E402
+    COUNTS)
 
 torch.set_num_threads(1)
 
@@ -104,15 +106,20 @@ def test_tx_ref_even_bw_scale_matches_pallas_tx(bw):
     np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=2e-6, rtol=0)
 
 
+def _launches() -> int:
+    """Launches of every hand-written kernel so far (``COUNTS``)."""
+    return sum(v for k, v in COUNTS.items() if k.startswith("launch."))
+
+
 def test_tx_wrapper_on_cpu_runs_plain_version():
     """A CPU tensor takes the plain version (bit-equal) and launches
     nothing."""
     p = T.LoraParams(sf=7)
     allsyms = _with_sync_prelude(torch.as_tensor(_tx_inputs(7, 1)), p)
-    before = cuda_tx.KERNEL_LAUNCHES
+    before = _launches()
     gr, gi = cuda_tx.tx_tone_synth(allsyms, p, dechirp=True)
     wr, wi = cuda_tx.tx_tone_synth_ref(allsyms, p, dechirp=True)
-    assert cuda_tx.KERNEL_LAUNCHES == before
+    assert _launches() == before
     assert torch.equal(gr, wr) and torch.equal(gi, wi)
 
 
@@ -175,10 +182,10 @@ def test_rx_wrapper_on_cpu_runs_plain_version():
     p, n, dr, di, t_off, rate, scale = _rx_inputs(7, 5)
     args = [torch.as_tensor(a) for a in (dr, di, t_off, rate, scale)]
     args += [torch.ones(n), torch.zeros(n), T.LoraParams(sf=7)]
-    before = cuda_rx.KERNEL_LAUNCHES
+    before = _launches()
     got = cuda_rx.rx_window_detect(*args)
     want = cuda_rx.rx_window_detect_ref(*args)
-    assert cuda_rx.KERNEL_LAUNCHES == before
+    assert _launches() == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -337,14 +344,24 @@ def test_wrappers_name_the_tpu_kernel_they_replace():
         text = (root / src).read_text()
         assert tpu in text, src
         assert "H100" in text, src
-    for mod, counts in (("ops/cuda_tx.py", ("DENSE_LAUNCHES",
-                                            "FACTORED_LAUNCHES",
-                                            "OSR_LAUNCHES")),
-                        ("ops/cuda_rx.py", ("DENSE_LAUNCHES",
-                                            "HYBRID_LAUNCHES",
-                                            "OSR_LAUNCHES"))):
+    # each launch path counts its kernel in the one registry
+    # (COUNTS["launch.<kernel>"]) and keeps no counter of its own
+    for mod, kernels in (("ops/cuda_tx.py", ("tx_dense", "tx_factored",
+                                             "tx_osr")),
+                         ("ops/cuda_rx.py", ("rx_dense", "rx_hybrid",
+                                             "rx_osr")),
+                         ("ops/cuda_stream.py", ("stream_scan",)),
+                         ("ops/cuda_detect.py", ("rotate_detect",))):
         tree = ast.parse((root / mod).read_text())
-        names = {t.id for node in ast.walk(tree)
-                 if isinstance(node, ast.Assign) for t in node.targets
-                 if isinstance(t, ast.Name)}
-        assert {"KERNEL_LAUNCHES", *counts} <= names, mod
+        consts = {node.value for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant)
+                  and isinstance(node.value, str)}
+        names = {t.id for node in tree.body if isinstance(node, ast.Assign)
+                 for t in node.targets if isinstance(t, ast.Name)}
+        counted = {node.func.id for node in ast.walk(tree)
+                   if isinstance(node, ast.Call)
+                   and isinstance(node.func, ast.Name)}
+        assert set(kernels) <= consts | {
+            c.rsplit(".", 1)[-1] for c in consts}, mod
+        assert "count" in counted and "span" in counted, mod
+        assert not {n for n in names if n.endswith("_LAUNCHES")}, mod

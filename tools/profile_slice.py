@@ -18,9 +18,7 @@ wide slices).  With ``--stream`` it profiles the streaming receiver
 instead: ``chip_smoke.py``'s stream slice of that many packets (one
 continuous stream, ``receive_stream`` in one call; ``--stream --packets
 8192`` is S7, ``--stream --sf 12 --packets 256`` S12, ``--stream --sf 9
---bw 250000 --osr 2 --packets 1024`` SW), in the stages of
-``receive_stream``: stream scan (kernel #7), start finding, selection of
-the owned starts, extraction, dechirp, demodulation, decode.  With
+--bw 250000 --osr 2 --packets 1024`` SW).  With
 ``--framed`` the packets are SX1272 frames: the slice is ``encode_frame ->
 modulate_dechirped -> demodulate_tones -> decode_frame_padded`` on 32-byte
 frames (``--framed --packets 8192`` is ``chip_smoke.py``'s sf7 framed
@@ -38,9 +36,11 @@ process:
   name;
 - the device's idle share, 1 - busy / wall, with the wall of the
   unprofiled run;
-- each stage alone: its host enqueue ms (until the call returns, no
-  synchronize) and its wall ms (until a synchronize after it), the median
-  over ``--iters`` iterations;
+- the stages: one more iteration under the profiler, read by the
+  program's own spans (``lora.*``, ``utils/spans.py``) as
+  ``portbench/metrics/_stages.py`` reads them: each span's host self ms,
+  the device ms of what it launched (itself and nested), the device-idle
+  ms while it was the innermost span, and the host's waits on the device;
 - the SM clock (``nvidia-smi``) right after the timed iterations;
 - with ``--sass``, the static SASS instruction count (``cuobjdump -sass``
   on the built kernel library) of each RX kernel instance the slice
@@ -58,10 +58,8 @@ from __future__ import annotations
 import argparse
 import collections
 import re
-import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -71,10 +69,9 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as lora  # noqa: E402
-from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (  # noqa: E402
-    receiver, streaming)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (  # noqa: E402
     cuda_build)
+from portbench.metrics import _stages  # noqa: E402
 
 PAYLOAD = 32
 
@@ -129,90 +126,40 @@ def _wide(p) -> bool:
     return p.bw_scale > 1 and p.osr >= p.bw_scale
 
 
-def _stages(payload, p, framed: bool):
-    """The slice as (name, thunk) pairs, each thunk feeding the next."""
+def _slice(payload, p, framed: bool):
+    """The slice as one function of no arguments, and the dict it leaves
+    its outputs in."""
     state = {}
     demod = lora.demodulate_wide if _wide(p) else lora.demodulate_tones
 
-    def enc():
-        state["syms"] = (lora.encode_frame(payload, p) if framed
-                         else lora.encode(payload))
-
-    def mod():
-        state["iq"] = lora.modulate_dechirped(state["syms"], p)
-
-    def dem():
-        state["res"] = demod(*state["iq"], p)
-
-    def dec():
+    def run():
+        syms = (lora.encode_frame(payload, p) if framed
+                else lora.encode(payload))
+        state["res"] = demod(*lora.modulate_dechirped(syms, p), p)
         if framed:
             fr = lora.decode_frame_padded(state["res"].symbols, p, PAYLOAD)
             state["dec"], state["ok"] = fr.payload, fr.crc_ok
         else:
             state["dec"], state["ok"] = lora.decode(state["res"].symbols)
-
-    return state, [("encode_frame" if framed else "encode", enc),
-                   ("modulate_dechirped", mod), (demod.__name__, dem),
-                   ("decode_frame_padded" if framed else "decode", dec)]
+    return state, run, demod.__name__
 
 
-def _stream_stages(sr, si, p, count, gate, framed: bool):
-    """``receive_stream``'s (``receive_stream_frames``'s) stages in its
-    order (one call, no carried state), each thunk feeding the next."""
+def _stream_call(sr, si, p, count, gate, framed: bool):
+    """One ``receive_stream`` (``receive_stream_frames``) call over the
+    whole stream, no carried state, as a function of no arguments, and
+    the dict it leaves its outputs in."""
     state = {}
-    wide = receiver._resolve_wide(p, None)
-    stride = receiver._default_stride(p, wide)
-    symbols = (lora.max_frame_symbols(p, PAYLOAD) if framed
-               else 2 * PAYLOAD)
-    plen = lora.packet_samples(p, symbols)
-    chunk_len = sr.shape[-1]
-    demod = lora.demodulate_wide if wide else lora.demodulate_tones
-    init = lora.stream_rx_init(p, symbols, device=sr.device)
-    slots = 2 * count if framed else count
 
-    def scan():
-        state["ext"] = (torch.cat([init.tail_r, sr]),
-                        torch.cat([init.tail_i, si]))
-        state["scan"] = streaming.stream_scan(*state["ext"], p,
-                                              stride=stride)
-
-    def starts():
-        state["mask"], state["start"] = streaming.find_packet_starts(
-            state["scan"], p, stride=stride, power_gate_db=gate,
-            dedupe_tol=max(2, p.osr) if wide else 2,
-            max_mis=receiver._wide_max_mis(p, stride) if wide else None)
-
-    def select():
-        owned = (state["mask"] & (state["start"] > 0)
-                 & (state["start"] <= chunk_len))
-        sentinel = plen + chunk_len + 1
-        cand = torch.where(owned, state["start"], sentinel)
-        first = torch.topk(cand, slots, largest=False, sorted=True).values
-        state["valid"] = first < sentinel
-        state["at"] = torch.clamp(torch.where(state["valid"], first, 0), 0,
-                                  chunk_len)
-
-    def extract():
-        state["pkt"] = tuple(x.unfold(0, plen, 1).index_select(0, state["at"])
-                             for x in state["ext"])
-
-    def dechirp():
-        state["iq"] = lora.dechirp(*state["pkt"], p)
-
-    def dem():
-        state["res"] = demod(*state["iq"], p)
-
-    def dec():
+    def run():
         if framed:
-            state["frames"] = lora.decode_frame_padded(
-                state["res"].symbols, p, PAYLOAD)
+            state["out"], _ = lora.receive_stream_frames(
+                sr, si, p, max_payload_len=PAYLOAD, max_packets=2 * count,
+                power_gate_db=gate)
         else:
-            state["dec"], state["ok"] = lora.decode(state["res"].symbols)
-
-    return state, [("stream_scan", scan), ("find_packet_starts", starts),
-                   ("select owned starts", select), ("extract", extract),
-                   ("dechirp", dechirp), (demod.__name__, dem),
-                   ("decode_frame_padded" if framed else "decode", dec)]
+            state["out"], _ = lora.receive_stream(
+                sr, si, p, payload_symbols=2 * PAYLOAD, max_packets=count,
+                power_gate_db=gate)
+    return state, run
 
 
 def _wall_ms(run, iters: int) -> float:
@@ -280,8 +227,8 @@ def main() -> int:
         else:
             sr, si, payload, _, planted = _stream_slice(p, args.packets,
                                                         rng, dev)
-        state, stages = _stream_stages(sr, si, p, args.packets,
-                                       args.power_gate_db, args.framed)
+        state, run = _stream_call(sr, si, p, args.packets,
+                                  args.power_gate_db, args.framed)
         what = (f"receive_stream{'_frames' if args.framed else ''} on one "
                 f"stream of {sr.shape[-1]:,} samples ({args.packets} "
                 f"{'frames' if args.framed else 'packets'}, gate "
@@ -290,29 +237,25 @@ def main() -> int:
         payload = torch.as_tensor(
             rng.integers(0, 256, (args.packets, PAYLOAD)).astype(np.uint8),
             device=dev)
-        state, stages = _stages(payload, p, args.framed)
-        what = (f"{stages[2][0]}, {args.packets} "
+        state, run, demod = _slice(payload, p, args.framed)
+        what = (f"{demod}, {args.packets} "
                 f"{'frames' if args.framed else 'packets'} x {PAYLOAD} B")
-
-    def run():
-        for _, fn in stages:
-            fn()
 
     for _ in range(3):
         run()
     torch.cuda.synchronize()
     if args.stream and args.framed:
-        plen = lora.packet_samples(p, lora.max_frame_symbols(p, PAYLOAD))
-        fr, at = state["frames"], state["at"] - plen
-        rows = torch.searchsorted(at[state["valid"]], planted)
+        fr = state["out"]
+        at = fr.start[fr.valid]
+        rows = torch.searchsorted(at, planted)
         assert torch.equal(at[rows], planted), "starts"
-        assert torch.equal(fr.payload[rows], payload), \
+        assert torch.equal(fr.payload[fr.valid][rows], payload), \
             "the stream did not decode"
     elif args.stream:
-        assert bool(state["valid"].all()), "the stream lost packets"
-        plen = lora.packet_samples(p, 2 * PAYLOAD)
-        assert torch.equal(state["at"] - plen, planted), "starts"
-        assert torch.equal(state["dec"], payload), "the stream did not decode"
+        pk = state["out"]
+        assert bool(pk.valid.all()), "the stream lost packets"
+        assert torch.equal(pk.start, planted), "starts"
+        assert torch.equal(pk.payload, payload), "the stream did not decode"
     elif p.osr == 1 or _wide(p):
         assert torch.equal(state["dec"], payload), "the slice did not decode"
     else:
@@ -332,17 +275,7 @@ def main() -> int:
     busy = sum(us for _, us in acts.values()) / 1e3 / args.iters
     launches = sum(c for c, _ in acts.values()) / args.iters
 
-    per_stage = {name: ([], []) for name, _ in stages}
-    for _ in range(args.iters):
-        for name, fn in stages:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            per_stage[name][0].append((t1 - t0) * 1e3)
-            per_stage[name][1].append((t2 - t0) * 1e3)
+    window = _stages.record(run, 1, torch.cuda.synchronize)
 
     lines = [
         _smi(),
@@ -359,10 +292,8 @@ def main() -> int:
     for name, (count, us) in sorted(acts.items(), key=lambda kv: -kv[1][1]):
         lines.append(f"  {us / args.iters:9.1f} us  {count / args.iters:4.0f}x"
                      f"  {name[:110]}")
-    lines.append("each stage alone, median ms: host enqueue / wall")
-    for name, (enq, tot) in per_stage.items():
-        lines.append(f"  {name:22s} {statistics.median(enq):8.3f} / "
-                     f"{statistics.median(tot):8.3f}")
+    lines.append("the program's stages over one more iteration:")
+    lines.append(_stages.table(_stages.analyse(window), window))
     if args.sass:
         counts = _sass_counts()
         lines.append("static SASS instructions a thread of each RX kernel "

@@ -66,7 +66,8 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    every packet found once at its planted start, bytes, CRC verdicts and
    sync words exact, #7 launched and, on the call the path made, equal to
    its plain version (bins on every clear window, dB within 0.05), the
-   kernel path equal to the plain path
+   extraction kernel launched once and equal to its plain version on the
+   path's call to the bit, the kernel path equal to the plain path
    on the card (whole stream) and to the CPU plain path on a prefix that
    holds 8 packets, and on S7 the first 64 packets fed in chunks of
    65,536 samples with carried state equal to the one call;
@@ -97,8 +98,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    sf7/BW125/CR4-5, 8192 frames, stride 32, gate 4 dB; FW wide
    sf9/BW250/CR4-8/osr2, 896 frames, stride 128.  Every planted frame once
    at its start with exact bytes, length and verdicts, every other
-   candidate failing its CRC, nothing dropped, #7 against its plain version
-   on the path's call, the plain versions on the card giving the same
+   candidate failing its CRC, nothing dropped, #7 and the extraction
+   kernel against their plain versions on the path's call, the plain
+   versions on the card giving the same
    frames, and F7's first 64 frames in chunks of 65,536 samples equal to
    the one call;
 7. timing (printed, not asserted): packets/s of every slice through the
@@ -110,7 +112,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    larger); beside ``rx_hybrid`` at sf12 and A and ``stream_scan`` at S7
    and S12, ``torch.fft.fft`` alone over the same windows already
    materialised as complex64 (the FFT step only, a yardstick the port
-   never calls);
+   never calls); the extraction kernel alone beside its plain version at
+   the benchmark's GF7 and SP12 stream calls (12,660 rows of 44,800
+   samples, 512 of 270,336, from 142.6 M samples), both equal to the bit;
 8W. every row of ``tests/vectors/sensitivity.csv`` through ``per_sweep``
    on the card, with the packets and dB tolerance ``tests/test_sweep.py``
    gives it: 5 SNR points, the SNR at 1 % PER within tolerance of the
@@ -178,11 +182,11 @@ from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.modem import
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.tones import (
     _tones_mult)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    codes, cuda_detect, cuda_rx, cuda_stream, cuda_tx)
+    codes, cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
-    streaming)
+    receiver, streaming)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (
     cuda_build, native)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (
@@ -236,7 +240,7 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 7
 VEC_DIR = Path(__file__).resolve().parent / "tests" / "vectors"
 KERNELS = ["tx_dense", "tx_factored", "tx_osr", "rx_dense", "rx_hybrid",
-           "rx_osr", "stream_scan", "rotate_detect"]
+           "rx_osr", "stream_scan", "rotate_detect", "extract_dechirp"]
 _COUNTED_FROM = {}      # COUNTS["launch.<kernel>"] at the last _reset_counts
 
 
@@ -685,18 +689,19 @@ def _plain_versions():
     count no launches), so the same pipeline runs without the kernels."""
     saved = (cuda_tx.tx_tone_synth, tones.rx_window_detect,
              modem.rx_window_detect, streaming.stream_window_detect,
-             tones.fused_rotate_detect)
+             tones.fused_rotate_detect, receiver.extract_dechirp)
     cuda_tx.tx_tone_synth = cuda_tx.tx_tone_synth_ref
     tones.rx_window_detect = cuda_rx.rx_window_detect_ref
     modem.rx_window_detect = cuda_rx.rx_window_detect_ref
     streaming.stream_window_detect = cuda_stream.stream_window_detect_ref
     tones.fused_rotate_detect = cuda_detect.fused_rotate_detect_ref
+    receiver.extract_dechirp = cuda_extract.extract_dechirp_ref
     try:
         yield
     finally:
         (cuda_tx.tx_tone_synth, tones.rx_window_detect,
          modem.rx_window_detect, streaming.stream_window_detect,
-         tones.fused_rotate_detect) = saved
+         tones.fused_rotate_detect, receiver.extract_dechirp) = saved
 
 
 @contextlib.contextmanager
@@ -718,6 +723,17 @@ def _capture(module, name: str, calls: list):
 def _plain(fn, payload, p):
     with _plain_versions():
         return fn(payload, p)
+
+
+def _extract_compare(calls, what) -> int:
+    """The extraction kernel against its plain version on the one call a
+    receiver made: both planes equal to the bit.  Returns the rows."""
+    (args, kw), = calls
+    got = cuda_extract.extract_dechirp(*args, **kw)
+    want = cuda_extract.extract_dechirp_ref(*args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), what
+    return got[0].shape[0]
 
 
 def _rx_args(dr, di, res, p):
@@ -924,16 +940,18 @@ def phase_stream(dev, rng, label, p, count: int, gate: float) -> dict:
     rx = _rx_kernel_name(p, wide)
     kw = {"payload_symbols": 2 * PAYLOAD, "max_packets": count,
           "power_gate_db": gate}
-    calls = []
+    calls, ext_calls = [], []
     _sync()
     _reset_counts()
     t0 = time.perf_counter()
-    with _capture(streaming, "stream_window_detect", calls):
+    with _capture(streaming, "stream_window_detect", calls), \
+            _capture(receiver, "extract_dechirp", ext_calls):
         pk, state = lora.receive_stream(sr, si, p, **kw)
     _sync()
     seconds = time.perf_counter() - t0
     launches = _counts()
     assert launches["stream_scan"] == 1 and launches[rx] > 0, launches
+    assert launches["extract_dechirp"] == 1, launches
     assert int(pk.n_candidates) == count, int(pk.n_candidates)
     assert int(pk.n_dropped) == 0 and bool(pk.valid.all())
     assert torch.equal(pk.start, starts), \
@@ -949,6 +967,8 @@ def phase_stream(dev, rng, label, p, count: int, gate: float) -> dict:
     (scan_args, scan_kw), = calls
     assert not scan_kw, scan_kw
     scan_err = _scan_compare(scan_args, (label, "full size"))
+    rows = _extract_compare(ext_calls, (label, "full size"))
+    del ext_calls
 
     with _plain_versions():
         plain, _ = lora.receive_stream(sr, si, p, **kw)
@@ -984,10 +1004,12 @@ def phase_stream(dev, rng, label, p, count: int, gate: float) -> dict:
           f"): {count} candidates, 0 dropped, every start at its planted "
           f"offset, bytes exact, crc_ok False on exactly the {ALTERED} "
           f"altered, sync 0x12; launches stream_scan="
-          f"{launches['stream_scan']} {rx}={launches[rx]}; stream_scan vs "
+          f"{launches['stream_scan']} extract_dechirp="
+          f"{launches['extract_dechirp']} {rx}={launches[rx]}; stream_scan vs "
           f"plain on the path's call ({windows:,} windows): bins equal on "
           f"every clear window, max |d dB| = {scan_err:.3g} (tol "
-          f"{RX_DB_ATOL}); plain path on the "
+          f"{RX_DB_ATOL}); extract_dechirp = plain on the path's call "
+          f"({rows} rows) to the bit; plain path on the "
           f"card (whole stream) and CPU ({CPU_PACKETS}-packet prefix, "
           f"|d time_offset| {dt:.3g}) agree{chunked}; first run "
           f"{seconds:.3f} s", flush=True)
@@ -1353,16 +1375,18 @@ def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
     rx = _rx_kernel_name(p, wide)
     kw = {"max_payload_len": FRAME_MAX, "max_packets": 2 * count,
           "stride": stride, "power_gate_db": gate}
-    calls = []
+    calls, ext_calls = [], []
     _sync()
     _reset_counts()
     t0 = time.perf_counter()
-    with _capture(streaming, "stream_window_detect", calls):
+    with _capture(streaming, "stream_window_detect", calls), \
+            _capture(receiver, "extract_dechirp", ext_calls):
         fr, state = lora.receive_stream_frames(sr, si, p, **kw)
     _sync()
     seconds = time.perf_counter() - t0
     launches = _counts()
     assert launches["stream_scan"] == 1 and launches[rx] > 0, launches
+    assert launches["extract_dechirp"] == 1, launches
     assert int(fr.n_dropped) == 0, int(fr.n_dropped)
     assert int(state.offset) == sr.shape[-1]
     v = fr.valid.cpu().numpy()
@@ -1380,6 +1404,8 @@ def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
     assert not fr.crc_ok.cpu().numpy()[extra].any(), "a false frame passed"
     (scan_args, scan_kw), = calls
     scan_err = _scan_compare(scan_args, (label, "full size"))
+    ext_rows = _extract_compare(ext_calls, (label, "full size"))
+    del ext_calls
     with _plain_versions():
         plain, _ = lora.receive_stream_frames(sr, si, p, **kw)
     for f in ("payload", "length", "hdr_ok", "crc_ok", "valid", "start",
@@ -1404,8 +1430,11 @@ def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
           f"crc_ok exact, sync 0x12, {int(fr.n_candidates)} candidates of "
           f"which {extra.size} inside frames (all failing their CRC), 0 "
           f"dropped; launches stream_scan={launches['stream_scan']} "
+          f"extract_dechirp={launches['extract_dechirp']} "
           f"{rx}={launches[rx]}; stream_scan vs plain on the path's call: "
           f"bins equal on every clear window, max |d dB| = {scan_err:.3g}; "
+          f"extract_dechirp = plain on the path's call ({ext_rows} rows) "
+          f"to the bit; "
           f"the plain versions on the card give the same frames{chunked}; "
           f"first run {seconds:.3f} s", flush=True)
     return {"p": p, "sr": sr, "si": si, "kw": kw, "count": count,
@@ -2079,6 +2108,38 @@ def _cufft_ms(module, plain, call) -> float:
     return ms
 
 
+def _extract_call(dev, p, chunk: int, symbols: int, packets: int,
+                  valid: int, rows: int, seed: int):
+    """The extraction call of a benchmark cell's stream: [tail | chunk] of
+    noise, one row a packet at its pitch plus a random offset under a
+    symbol, ``valid - packets`` more rows at random symbols inside the
+    packets (the candidates a frame's data symbols raise), ascending, and
+    ``rows - valid`` sentinel rows at 0 after them, as ``_owned_starts``
+    hands them on: (args, keywords)."""
+    rng = np.random.default_rng(seed)
+    plen = symbols * p.step
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ext_r = torch.randn(plen + chunk, generator=gen, device=dev)
+    ext_i = torch.randn(plen + chunk, generator=gen, device=dev)
+    starts = (plen + np.arange(packets) * (chunk // packets)
+              + rng.integers(0, p.step, packets))
+    extra = (starts[rng.integers(0, packets, valid - packets)]
+             + rng.integers(1, symbols, valid - packets) * p.step)
+    pos = np.minimum(np.sort(np.concatenate([starts, extra])), chunk)
+    pos = np.concatenate([pos, np.zeros(rows - valid, np.int64)])
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    return (ext_r, ext_i, pos, plen, p), {}
+
+
+def _extract_bound(args, kw) -> tuple[float, str]:
+    """Extraction: the rows written once (8 B a sample) and the stream read
+    once (8 B a sample; overlapping rows and the sentinel rows read from
+    L2); 6 flops a row sample."""
+    ext_r, pos, plen = args[0], args[2], args[3]
+    out = pos.numel() * plen
+    return _bound(out * 8 + ext_r.numel() * 8 + pos.numel() * 8, out * 6)
+
+
 def _kernel_alone(kernel, plain, call, bound) -> tuple:
     """(ms, plain ms, bound ms, bound by) of one kernel call recorded on
     the main path, run again alone."""
@@ -2207,10 +2268,38 @@ def phase_timing(slices, full_rx, smi, streams, route, framed,
                  f"two-stage route's) {ms:.4f} ms vs "
                  f"plain {plain_ms:.4f} ms (bound {bound_ms:.4f} ms by "
                  f"{bound_by})")
+    for label, p, chunk, symbols, packets, valid, rows in EXTRACT_AT:
+        call = _extract_call(torch.device("cuda", 0), p, chunk, symbols,
+                             packets, valid, rows, SEED)
+        got = cuda_extract.extract_dechirp(*call[0])
+        want = cuda_extract.extract_dechirp_ref(*call[0])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), label
+        del got, want
+        times["extract_dechirp", label] = _kernel_alone(
+            cuda_extract.extract_dechirp, cuda_extract.extract_dechirp_ref,
+            call, _extract_bound)
+        ms, plain_ms, bound_ms, bound_by = times["extract_dechirp", label]
+        lines.append(f"extract_dechirp at {label} ({rows:,} rows of "
+                     f"{symbols * p.step:,} samples from {chunk:,}; = plain "
+                     f"to the bit) {ms:.4f} ms vs plain {plain_ms:.4f} ms "
+                     f"(bound {bound_ms:.4f} ms by {bound_by}; "
+                     f"{bound_ms / ms * MEM_BYTES_PER_S / 1e12:.3f} TB/s of "
+                     f"rows written and stream read once)")
+        del call
+        torch.cuda.empty_cache()
     print(f"phase 7 timing [{smi}]: " + " | ".join(lines), flush=True)
     return times, cufft
 
 
+# Where phase 7 times the extraction kernel: the stream calls of the
+# benchmark's sf7-gateway-frames (GF7: 3,165 frames of up to 350 symbols,
+# 12,660 rows, 2.77 valid a frame, the rest sentinels at 0) and
+# sf12-stream-packets (SP12: 512 packets of 66 symbols, every row valid):
+# (label, params, chunk samples, row symbols, packets, valid rows, rows).
+EXTRACT_AT = (("GF7", lora.LoraParams(sf=7, bw=125000, cr="4/5"),
+               142_606_336, 350, 3165, 8_767, 12_660),
+              ("SP12", lora.LoraParams(sf=12, bw=125000, cr="4/5"),
+               142_606_336, 66, 512, 512, 512))
 # Where phase 7 times torch.fft.fft beside a kernel (the cuFFT yardstick).
 CUFFT_AT = {("rx_hybrid", "sf12"), ("rx_hybrid", "A"), ("stream_scan", "S7"),
             ("stream_scan", "S12")}
@@ -2228,6 +2317,7 @@ KERNEL_LINE = (
      "variant, _shifted_windows :413-441)"),
     ("stream_scan", "S7", "ops/pallas_stream.py:107"),
     ("rotate_detect", "sf7", "ops/pallas_detect.py:41"),
+    ("extract_dechirp", "GF7", None),
 )
 # (label, params, packets, power gate dB).  At the default stride step/4 a
 # start midway between two windows leaves its second sync window (which
@@ -2306,7 +2396,7 @@ def run_phases(dev, rng, smi) -> list[dict]:
         assert launches[name] > 0, (name, launches)
         entry = {"name": name, "route": "cuda",
                  "source": f"{PKG}/csrc/{name}.cu",
-                 "replaces": f"{JAX_PKG}/{replaces}",
+                 "replaces": replaces and f"{JAX_PKG}/{replaces}",
                  "launches": launches[name], "max_abs_err": err[name],
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": None,
@@ -2314,12 +2404,14 @@ def run_phases(dev, rng, smi) -> list[dict]:
         if (name, label) in cufft:
             entry["cufft_ms"] = cufft[name, label]
         for other, at, key in (("rx_hybrid", "A", "at_16384"),
-                               ("stream_scan", "S12", "at_4096")):
+                               ("stream_scan", "S12", "at_4096"),
+                               ("extract_dechirp", "SP12", "at_SP12")):
             if name == other:
                 ms, plain_ms, bound_ms, bound_by = times[name, at]
                 entry[key] = {"ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by,
-                              "cufft_ms": cufft[name, at]}
+                              "bound_ms": bound_ms, "bound_by": bound_by}
+                if (name, at) in cufft:
+                    entry[key]["cufft_ms"] = cufft[name, at]
         if name == "rotate_detect":   # the two-stage route against auto
             entry["route_db_gap_vs_auto"] = route["gap"]
         kernels.append(entry)

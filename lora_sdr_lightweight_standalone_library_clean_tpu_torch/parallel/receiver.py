@@ -54,9 +54,9 @@ same on every rank.  Three collectives a chunk, whose bytes
 ``lora.rx.extend`` ([tail | chunk], the halo gather on a mesh),
 ``lora.rx.scan``, ``lora.rx.select`` (start finding, ownership, the first
 ``max_packets``), ``lora.rx.extract`` (the packets' rows and their
-dechirp), the demodulator's ``lora.rx.demod``, the decoder's
-``lora.codec.*`` and ``lora.rx.outputs`` (the masked records and the new
-state).
+dechirp, one kernel on the card: ``ops/cuda_extract.py``), the
+demodulator's ``lora.rx.demod``, the decoder's ``lora.codec.*`` and
+``lora.rx.outputs`` (the masked records and the new state).
 
 The JAX package counts samples in int32 (its offset wraps after 2^31
 samples, about 4.8 hours at 125 kHz); the port counts them in int64.
@@ -70,12 +70,13 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..models import frame as frame_codec
-from ..models.modem import decode, dechirp, demodulate_wide
+from ..models.modem import decode, demodulate_wide
 from ..models.tones import demodulate_tones
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
 from ..utils.spans import span, spanned
 from ..utils.tensors import host_device
+from ..ops.cuda_extract import extract_dechirp
 from ..ops.cuda_stream import stream_window_detect
 from .streaming import (StreamScan, _all_gather, all_reduce, axis_size,
                         find_packet_starts, following, local_block,
@@ -325,11 +326,7 @@ def _demod_owned(ext: _Ext, starts_c, valid, plen: int, params: LoraParams,
                     & (starts_c < ext.lo + ext.owned))
             rows = torch.nonzero(mine).flatten()
             pos = starts_c[rows] - ext.lo
-        # each packet is a row of the overlapping (len - plen + 1, plen)
-        # view of the samples: one gather of k * plen samples
-        pkt_r = ext.r.unfold(0, plen, 1).index_select(0, pos)
-        pkt_i = ext.i.unfold(0, plen, 1).index_select(0, pos)
-        dr, di = dechirp(pkt_r, pkt_i, params)
+        dr, di = extract_dechirp(ext.r, ext.i, pos, plen, params)
     fields = finish((demodulate_wide if wide else demodulate_tones)(
         dr, di, params))
     if mesh is None:

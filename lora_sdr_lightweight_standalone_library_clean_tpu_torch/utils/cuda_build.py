@@ -76,6 +76,10 @@ _SIGNATURES = {
     # zr, zi, rate, start, tw, bins, b, s, n, scale_db, idx, pw, pav, stream
     "lora_rotate_detect": [_c_void_p] * 6 + [_c_int] * 3 + [_c_float]
                           + [_c_void_p] * 4,
+    # sr, si, len (64-bit), pos, k, plen, cr, ci, step, out_r, out_i, stream
+    "lora_extract_dechirp": [_c_void_p, _c_void_p, ctypes.c_longlong,
+                             _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p,
+                             _c_int, _c_void_p, _c_void_p, _c_void_p],
 }
 
 # Filled by load(): library path, build seconds (0.0 when it was cached)

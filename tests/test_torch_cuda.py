@@ -3,8 +3,9 @@
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  It covers every kernel: the TX kernels at osr 1
 and osr > 1, the RX kernels on osr-1, decimated osr > 1, halo and wide
-windows up to 16384 points, the streaming scan (#7) and the rotate-detect
-kernel (#8).  The file imports neither jax nor the JAX
+windows up to 16384 points, the streaming scan (#7), the rotate-detect
+kernel (#8) and the streaming receivers' extraction kernel, which must
+equal its plain version to the bit.  The file imports neither jax nor the JAX
 package, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -24,7 +25,7 @@ import torch
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as T
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_detect, cuda_rx, cuda_stream, cuda_tx)
+    cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (
@@ -532,6 +533,108 @@ def test_stream_kernel_beyond_2_31_samples(cuda_device):
     _assert_scan_matches([a[-k:] for a in got], want_tail)
     del r, i
     torch.cuda.empty_cache()
+
+
+EXTRACT_CONFIGS = {"sf7": dict(sf=7), "sf12": dict(sf=12),
+                   "sf7-osr2": dict(sf=7, osr=2),
+                   "sf9-bw250-osr2": dict(sf=9, bw=250000, osr=2)}
+
+
+def _extract_case(p, symbols, dev, seed):
+    """A noisy (len,) stream and, sorted as the receivers sort them, odd
+    starts, a row ending on the last sample, and repeated starts at 0 (the
+    sentinel rows), int64 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    plen = symbols * p.step
+    length = plen + 40 * p.step + 7
+    sr = torch.as_tensor(rng.standard_normal(length).astype(np.float32),
+                         device=dev)
+    si = torch.as_tensor(rng.standard_normal(length).astype(np.float32),
+                         device=dev)
+    last = length - plen
+    odd = np.sort(rng.integers(0, last, 24) | 1)
+    pos = np.concatenate([odd, [odd[-1], last - 2, last], [0] * 5])
+    return sr, si, torch.as_tensor(pos, dtype=torch.int64, device=dev), plen
+
+
+@pytest.mark.parametrize("config", sorted(EXTRACT_CONFIGS))
+def test_extract_kernel_equals_plain_on_card(cuda_device, config):
+    """The extraction kernel's rows are the plain steps' to the bit (no
+    tolerance): odd starts, a repeated start, a row that ends on the last
+    sample, and sentinel rows at 0; one launch."""
+    p = T.LoraParams(**EXTRACT_CONFIGS[config])
+    sr, si, pos, plen = _extract_case(p, 35 if p.step < 4096 else 4,
+                                      cuda_device, p.sf)
+    before = COUNTS["launch.extract_dechirp"]
+    dr, di = cuda_extract.extract_dechirp(sr, si, pos, plen, p)
+    assert COUNTS["launch.extract_dechirp"] == before + 1
+    wr, wi = cuda_extract.extract_dechirp_ref(sr, si, pos, plen, p)
+    torch.cuda.synchronize()
+    assert dr.shape == (pos.shape[0], plen)
+    assert torch.equal(dr, wr) and torch.equal(di, wi)
+
+
+def test_extract_kernel_no_rows_on_card(cuda_device):
+    """K = 0 launches nothing and returns empty (0, plen) planes."""
+    p = T.LoraParams(sf=7)
+    z = torch.zeros(8 * p.step, device=cuda_device)
+    pos = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    before = COUNTS["launch.extract_dechirp"]
+    dr, di = cuda_extract.extract_dechirp(z, z, pos, 4 * p.step, p)
+    assert COUNTS["launch.extract_dechirp"] == before
+    assert dr.shape == di.shape == (0, 4 * p.step)
+    assert dr.device == di.device == z.device
+
+
+def test_extract_kernel_beyond_2_31_samples(cuda_device):
+    """A stream of 2^31 + 2^20 samples with rows at 0, just past 2^31 (odd)
+    and ending on the last sample: the kernel's 64-bit offsets give the
+    plain steps' rows, each run on its own samples."""
+    p = T.LoraParams(sf=7)
+    length = 2 ** 31 + 2 ** 20
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    r = torch.randn(length, generator=gen, device=cuda_device)
+    i = torch.randn(length, generator=gen, device=cuda_device)
+    plen = 68 * p.step
+    pos = torch.tensor([0, 2 ** 31 + 3, length - plen], dtype=torch.int64,
+                       device=cuda_device)
+    dr, di = cuda_extract.extract_dechirp(r, i, pos, plen, p)
+    zero = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    for k, a in enumerate(pos.tolist()):
+        row = slice(a, a + plen)
+        wr, wi = cuda_extract.extract_dechirp_ref(r[row], i[row], zero, plen,
+                                                  p)
+        assert torch.equal(dr[k], wr[0]) and torch.equal(di[k], wi[0]), a
+    del r, i
+    torch.cuda.empty_cache()
+
+
+def test_extract_kernel_rejects_what_it_does_not_take(cuda_device):
+    """Wrong dtype, device or shape of any input, and a row length that is
+    not a multiple of step, raise InvalidArgumentError."""
+    p = T.LoraParams(sf=7)
+    plen = 4 * p.step
+    z = torch.zeros(8 * p.step, device=cuda_device)
+    pos = torch.tensor([0, 3], device=cuda_device)
+    bad = {
+        "ext_r dtype": (z.double(), z, pos, plen),
+        "ext_i dtype": (z, z.half(), pos, plen),
+        "ext_i device": (z, z.cpu(), pos, plen),
+        "ext_r shape": (z.reshape(8, p.step), z, pos, plen),
+        "ext_i shape": (z, z[:-1], pos, plen),
+        "ext_i strided": (z, torch.zeros(16 * p.step,
+                                         device=cuda_device)[::2], pos, plen),
+        "pos dtype": (z, z, pos.int(), plen),
+        "pos device": (z, z, pos.cpu(), plen),
+        "pos shape": (z, z, pos[None], plen),
+        "plen": (z, z, pos, plen + 4),
+    }
+    for what, args in bad.items():
+        try:
+            cuda_extract.extract_dechirp(*args, p)
+        except T.errors.InvalidArgumentError:
+            continue
+        pytest.fail(f"{what}: no InvalidArgumentError")
 
 
 @pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7, 8, 9])

@@ -278,9 +278,9 @@ def test_nvcc_command_targets_sm90a():
     """One compile per source for sm_90a, then one shared-library link."""
     srcs = sorted(s.name for s in cuda_build._sources()
                   if s.suffix == ".cu")
-    assert srcs == ["rotate_detect.cu", "rx_dense.cu", "rx_hybrid.cu",
-                    "rx_osr.cu", "stream_scan.cu", "tx_dense.cu",
-                    "tx_factored.cu", "tx_osr.cu"]
+    assert srcs == ["extract_dechirp.cu", "rotate_detect.cu", "rx_dense.cu",
+                    "rx_hybrid.cu", "rx_osr.cu", "stream_scan.cu",
+                    "tx_dense.cu", "tx_factored.cu", "tx_osr.cu"]
     cmd = cuda_build.compile_command(Path("csrc/rx_hybrid.cu"),
                                      Path("rx_hybrid.o"))
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]

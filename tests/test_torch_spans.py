@@ -8,8 +8,10 @@ demodulate_tones -> decode`` shows its spans; with no profiler a span is
 the shared no-op and no ``record_function`` is made.  ``COUNTS`` holds the
 launches of the hand-written kernels (none on the CPU, where every route
 runs its plain version) and the bytes of the sharded receiver's
-collectives, checked here on a one-rank gloo mesh.  Streams are made by
-the port itself from fixed seeds; the file imports neither jax nor the JAX
+collectives, checked here on a one-rank gloo mesh.  On a card (marked
+``cuda``, skipped here) the extraction kernel's span opens inside
+``lora.rx.extract`` once a stream call.  Streams are made by the port
+itself from fixed seeds; the file imports neither jax nor the JAX
 package.
 """
 import contextlib
@@ -26,7 +28,7 @@ import lora_sdr_lightweight_standalone_library_clean_tpu_torch as T
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models import (
     tones)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_detect, cuda_rx, cuda_stream, cuda_tx)
+    cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
     distributed as D, mesh as M, receiver)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (
@@ -210,6 +212,9 @@ def _route_calls():
         "rotate_detect": lambda: T.demodulate_tones(z, z, P7,
                                                     backend="pallas"),
         "wide": lambda: T.demodulate_wide(zw, zw, pw),
+        "extract_dechirp": lambda: cuda_extract.extract_dechirp(
+            torch.zeros(8 * P7.step), torch.zeros(8 * P7.step),
+            torch.tensor([0, 3]), 4 * P7.step, P7),
     }
 
 
@@ -228,7 +233,8 @@ def test_plain_routes_launch_nothing(route):
 def test_launch_paths_count_in_the_registry():
     """The one registry: no kernel wrapper keeps a counter of its own, and
     ``count`` adds to ``COUNTS``."""
-    for mod in (cuda_tx, cuda_rx, cuda_stream, cuda_detect, tones):
+    for mod in (cuda_tx, cuda_rx, cuda_stream, cuda_detect, cuda_extract,
+                tones):
         assert not [n for n in vars(mod) if n.endswith("LAUNCHES")], mod
     assert not hasattr(T.streaming, "COLLECTIVE_BYTES")
     before = spans.COUNTS["launch.test_only"]
@@ -236,6 +242,33 @@ def test_launch_paths_count_in_the_registry():
     spans.count("launch.test_only", 2)
     assert spans.COUNTS["launch.test_only"] == before + 3
     del spans.COUNTS["launch.test_only"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framed", [False, True])
+def test_extraction_kernel_opens_inside_extract_on_card(framed):
+    """On the card each stream call launches the extraction kernel once:
+    one ``lora.kernel.extract_dechirp`` span inside each
+    ``lora.rx.extract``, and ``COUNTS["launch.extract_dechirp"]`` one
+    higher a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sr, si, pay = _stream(framed)
+    sr, si = sr.cuda(), si.cuda()
+    half = sr.shape[-1] // 2
+    before = spans.COUNTS["launch.extract_dechirp"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, state = _receive(framed, sr[:half], si[:half])
+        out2, _ = _receive(framed, sr[half:], si[half:], state)
+    assert spans.COUNTS["launch.extract_dechirp"] == before + 2
+    assert torch.equal(out.payload[:1].cpu(), pay[:1])
+    assert torch.equal(out2.payload[:1].cpu(), pay[1:])
+    got = _spans(prof)
+    extract = [s for s in got if s[0] == "lora.rx.extract"]
+    kernel = [s for s in got if s[0] == "lora.kernel.extract_dechirp"]
+    assert len(extract) == 2 and len(kernel) == 2
+    for outer, inner in zip(extract, kernel):
+        assert _inside(inner, outer), (inner, outer)
 
 
 def _free_port() -> int:

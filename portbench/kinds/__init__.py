@@ -16,4 +16,14 @@
 - ``compare(got, ref, truth, mix, phy)``: the numbers of one call.
 
 A new kind is a new module here; nothing else is edited.
+
+A kind for a cell of ``chips`` > 1 has the same interface.  Each rank
+runs it on its own card (``ranks.py``) after the program's process group
+exists, so ``entry`` builds its mesh with the port's ``global_mesh`` (and
+shards each input with the port's shardings); ``build`` makes the same
+full input on every rank.  ``compare`` judges one rank's outputs: the run
+takes each number's widest reading over the ranks.  ``shapes`` sizes the
+whole call, as the end-to-end rates read it; the accepted roofline readers
+set those sizes against rank 0's trace alone, so a sharded cell reports
+rooflines through readers of its own that count one rank's share.
 """

@@ -13,11 +13,11 @@ whatever the stream or the order in which the card ran them.
 The window: ``CALLS`` further calls of the cell's traced call (the one the
 other traced windows take), with the host's operations and the device's
 activities, each call inside the benchmark's span (``trace.SPAN``) and
-synchronised as the harness's own windows are.  The harness hands its
-readers the run's record, which holds no call, so the first reader finds
-the call, its device and the calls in flight in the frame of
-``run.run_cell`` that calls it; the result is kept on ``run`` for the
-other readers, and its table printed to standard error once.  Without
+synchronised as the harness's own windows are.  The run's record that the
+harness hands its readers holds the call, its device and the calls in
+flight (``run.call``, ``run.device``, ``run.in_flight``); the first
+reader records and analyses the window, keeps the result on ``run`` for
+the other readers, and prints its table to standard error once.  Without
 ``lora.`` spans in the window (a program that records none) every stage
 reader returns None.
 """
@@ -309,35 +309,22 @@ def table(st: Stages | None, w: Window) -> str:
     return "\n".join(lines)
 
 
-def _harness_call():
-    """The traced call, its device and its calls in flight, from the frame
-    of ``run.run_cell`` that calls the reader; None elsewhere."""
-    f = sys._getframe(1)
-    while f is not None:
-        if f.f_code.co_name == "run_cell" and "one" in f.f_locals:
-            loc = f.f_locals
-            return loc["one"], loc.get("device"), loc.get("in_flight", 1)
-        f = f.f_back
-    return None
-
-
 def of(run) -> Stages | None:
     """The stages of the run's cell: recorded and analysed at the first
     reader's call, then kept on ``run``."""
     if hasattr(run, "lora_stages"):
         return run.lora_stages
     run.lora_stages = None
-    found = _harness_call()
-    if found is None or getattr(run, "trace", None) is None:
+    if getattr(run, "call", None) is None \
+            or getattr(run, "trace", None) is None:
         return None
-    call, device, in_flight = found
-    cuda = getattr(device, "type", "cpu") == "cuda"
+    cuda = run.device.type == "cuda"
     if cuda:
         import torch
         sync = torch.cuda.synchronize
     else:
         sync = None
-    w = record(call, CALLS, sync, in_flight, cuda)
+    w = record(run.call, CALLS, sync, run.in_flight, cuda)
     run.lora_stages = analyse(w)
     print(table(run.lora_stages, w), file=sys.stderr)
     return run.lora_stages

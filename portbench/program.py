@@ -10,12 +10,20 @@ import importlib
 
 PORT = "lora_sdr_lightweight_standalone_library_clean_tpu_torch"
 
-__all__ = ["PORT", "load", "entry"]
+__all__ = ["PORT", "load", "join", "entry"]
 
 
 def load():
     """Import the port (its kernels build or load at their first call)."""
     return importlib.import_module(PORT)
+
+
+def join(backend: str) -> bool:
+    """Join this rank's process group through the port's own
+    ``init_distributed``, as a user under ``torchrun`` does: it reads the
+    rank's environment, and with NCCL takes card ``LOCAL_RANK``."""
+    distributed = importlib.import_module(PORT + ".parallel.distributed")
+    return distributed.init_distributed(backend=backend)
 
 
 def entry(cell, phy):

@@ -1,4 +1,4 @@
-"""Run one cell of the benchmark once, on one CUDA card.
+"""Run one cell of the benchmark once, on the CUDA cards it asks for.
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -23,6 +23,11 @@ mix, kind of traffic, limits and per-layer readers are files under
    (``reference/``) runs on each input those calls used, and the kind's
    comparison (``check.py``) judges; each number is printed beside its
    limit on standard error.
+
+A cell of one chip runs in this process.  A cell of ``chips`` > 1 runs
+one process per rank, each on its own card (``ranks.py``): every rank
+makes the same calls in lockstep, and the ranks' readings are merged into
+one result (``run_cell``'s ``group``).
 
 The last line of standard output is the result: ``correct``,
 ``attempted`` and ``failed`` (packets offered in the window, and packets
@@ -53,8 +58,9 @@ from types import SimpleNamespace  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
-from portbench import generate, program, spec, trace  # noqa: E402
+from portbench import generate, program, ranks, spec, trace  # noqa: E402
 from portbench.metrics import _roofline  # noqa: E402
 from portbench.reference.phy import Phy  # noqa: E402
 
@@ -107,6 +113,51 @@ class _Clock:
         return mark[0].elapsed_time(mark[1])
 
 
+class _Lockstep:
+    """The window's end across ranks: rank 0's host clock decides, and
+    every rank stops after the same call.  After every ``EVERY``-th call
+    a rank reads the decision rank 0 posted ``EVERY`` calls before (a
+    broadcast on the harness's gloo group, sent without waiting for it)
+    and posts rank 0's current one, so no rank waits on the exchange
+    inside a call's CUDA-event interval, and the stop lags by at most
+    2 x ``EVERY`` calls.  One exchange costs the host 0.25-0.65 ms (gloo
+    over loopback, on the four-H100 machine and on an 8-core CPU host),
+    hence not one every call."""
+
+    EVERY = 8
+
+    def __init__(self, group):
+        self.group = group
+        self.flag = torch.zeros(1, dtype=torch.int32)
+        self.work = None
+        self.seconds = 0.0      # host time spent here, over the window
+
+    def stop(self, calls: int, due: bool) -> bool:
+        if calls % self.EVERY:
+            return False
+        t0 = time.perf_counter()
+        done = False
+        if self.work is not None:
+            self.work.wait()
+            done = bool(self.flag[0])
+        if not done:
+            self.flag[0] = int(due)
+            self.work = dist.broadcast(self.flag, 0, group=self.group,
+                                       async_op=True)
+        self.seconds += time.perf_counter() - t0
+        return done
+
+
+def _every(group, value) -> list:
+    """``value`` of every rank, in rank order; ``[value]`` without a
+    group."""
+    if group is None:
+        return [value]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, value, group=group)
+    return out
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -150,9 +201,19 @@ def judge(cell, phy, pool, kept, prec: str = "f64") -> tuple[dict, int]:
 
 
 def run_cell(cell, seed: int, seconds: float, traced: bool, device,
-             start: float = START, wrap=None) -> dict:
+             start: float = START, wrap=None, group=None) -> dict:
     """One run of ``cell`` on ``device``; ``wrap(call)`` may replace the
-    timed call (the tests' planted faults)."""
+    timed call (the tests' planted faults).
+
+    ``group``: the harness's own gloo group when the cell runs across
+    ranks, each rank calling this with its own card; None for one chip.
+    With a group, a barrier ends set-up and another closes the window
+    once every rank's card has finished, every rank stops after the same
+    call (``_Lockstep``), and the readings merge over the ranks: a call
+    takes the slowest rank's time, each compared number its widest
+    reading, ``failed`` the largest (a mesh call's outputs are global on
+    every rank), and the peak memory the fullest card's.  The per-layer
+    metrics and ``breakdown`` are this rank's."""
     device = torch.device(device)
     mix = cell.mix
     phy = phy_of(cell)
@@ -174,6 +235,10 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     gc.freeze()
     gc.disable()
+    lockstep = None
+    if group is not None:
+        dist.barrier(group=group)
+        lockstep = _Lockstep(group)
     setup_s = time.perf_counter() - start
 
     in_flight = mix.get("in_flight", 1)
@@ -200,11 +265,16 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
                 kept[j] = (index, out)
         del out
         i += 1
-        if time.perf_counter() - w0 >= seconds:
+        if lockstep is None:
+            if time.perf_counter() - w0 >= seconds:
+                break
+        elif lockstep.stop(i, time.perf_counter() - w0 >= seconds):
             break
     while pending:
         call_ms.append(clock.read_ms(pending.popleft()))
     _sync(device)
+    if group is not None:
+        dist.barrier(group=group)
     w1 = time.perf_counter()
     window_s = w1 - w0
     gc.enable()
@@ -222,51 +292,88 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     packets = pool[0].packets
     metrics = {}
     shapes = cell.kind.shapes(mix, phy)
+    busy_s = window_s_traced = None
     if traced:
         run = SimpleNamespace(
             trace=tr, host_ms=host_ms, shapes=shapes, planted=packets,
             outputs=[cell.kind.outputs(o) for _, o in kept],
             port_kernels=_roofline.port_kernels(
-                cell.root / program.PORT))
+                cell.root / program.PORT),
+            call=one, device=device, in_flight=in_flight)
         for m in cell.per_layer:
             value = spec.reader(cell, m["name"])(run)
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    else:
+        busy_s = sum(e - s for s, e in trace.busy_intervals(tr)) * 1e-6
+        window_s_traced = (tr.window[1] - tr.window[0]) * 1e-6
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t_check = time.perf_counter()
+    numbers, failed = judge(cell, phy, pool, kept)
+    rank = "" if group is None else \
+        f" (rank {dist.get_rank()} of {dist.get_world_size()})"
+    print(f"portbench: {cell.name} seed {seed}{rank}: set-up {setup_s:.3f} "
+          f"s, {i} calls in {window_s:.3f} s, check "
+          f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
+    every = _every(group, {
+        "calls": i, "call_ms": call_ms, "setup_s": setup_s, "peak": peak,
+        "kind": (torch.cuda.get_device_name(device)
+                 if device.type == "cuda" else "cpu"),
+        "numbers": numbers, "failed": failed, "busy_s": busy_s,
+        "window_s": window_s_traced,
+        "stop_us": (lockstep.seconds / i * 1e6
+                    if lockstep is not None else None)})
+    if len({r["calls"] for r in every}) != 1:
+        raise RuntimeError("the ranks made different numbers of calls: "
+                           f"{[r['calls'] for r in every]}")
+    call_ms = [max(ms) for ms in zip(*(r["call_ms"] for r in every))]
+    if len(every) > 1 and dist.get_rank() == 0:
+        _print_ranks(every)
+    if not traced:
         values = {
             "pkts_per_s": packets * i / window_s,
             "call_p95_ms": statistics.quantiles(call_ms, n=20)[18]
             if len(call_ms) > 1 else call_ms[0],
             "air_s_per_s": shapes["samples"] / phy.sample_rate * i / window_s,
-            "setup_s": setup_s,
+            "setup_s": max(r["setup_s"] for r in every),
         }
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    t_check = time.perf_counter()
-    numbers, failed = judge(cell, phy, pool, kept)
-    print(f"portbench: {cell.name} seed {seed}: set-up {setup_s:.3f} s, "
-          f"{i} calls in {window_s:.3f} s, check "
-          f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
-    checks = {k: {"value": v, "limit": cell.limits[k]}
-              for k, v in numbers.items()}
+    checks = {k: {"value": max(r["numbers"][k] for r in every),
+                  "limit": cell.limits[k]} for k in numbers}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": (torch.cuda.get_device_name(device)
-                    if device.type == "cuda" else "cpu"),
-           "count": cell.chips, "memory_peak_bytes": peak}
+           "kind": every[0]["kind"], "count": len(every),
+           "memory_peak_bytes": max(r["peak"] for r in every)}
     result = {"correct": correct, "attempted": packets * i,
-              "failed": failed, "metrics": metrics, "device": dev}
+              "failed": max(r["failed"] for r in every), "metrics": metrics,
+              "device": dev}
     if traced:
-        busy = sum(e - s for s, e in trace.busy_intervals(tr))
-        dev.update(busy_s=busy * 1e-6,
-                   window_s=(tr.window[1] - tr.window[0]) * 1e-6)
+        # averaged over the cards used
+        dev.update(busy_s=sum(r["busy_s"] for r in every) / len(every),
+                   window_s=sum(r["window_s"] for r in every) / len(every))
         result["breakdown"] = trace.breakdown(tr, named)
+    if len(every) > 1:
+        dev["per_rank"] = [{"kind": r["kind"], "memory_peak_bytes": r["peak"]}
+                           for r in every]
     result["calls"] = i
     result["checks"] = checks
     return result
+
+
+def _print_ranks(every: list) -> None:
+    """A run across ranks, on standard error: each rank's set-up and stop
+    exchange, and how far the ranks' times of one call lie apart."""
+    skew = sorted(max(ms) - min(ms)
+                  for ms in zip(*(r["call_ms"] for r in every)))
+    for k, r in enumerate(every):
+        print(f"portbench: rank {k} on {r['kind']}: set-up {r['setup_s']:.3f}"
+              f" s, stop exchange {r['stop_us']:.1f} us a call, peak "
+              f"{r['peak']} B", file=sys.stderr)
+    print(f"portbench: ranks' times of one call apart by {skew[-1]:.4f} ms "
+          f"at most, {statistics.median(skew):.4f} ms in the median",
+          file=sys.stderr)
 
 
 def main(argv=None) -> int:
@@ -284,8 +391,14 @@ def main(argv=None) -> int:
         return 2
     # one host thread for the port's CPU work: the caller is the load
     torch.set_num_threads(1)
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      "cuda")
+    if cell.chips == 1:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                          "cuda")
+    else:
+        result = ranks.launch(cell, args.seed, args.seconds,
+                              bool(args.trace), start=START)
+        if result is None:
+            return 4
     found = forbidden_modules()
     if found:
         print(f"portbench: the process holds {', '.join(found)}",

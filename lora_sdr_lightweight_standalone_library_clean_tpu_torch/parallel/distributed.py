@@ -31,13 +31,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
+from ..utils.errors import InvalidArgumentError
 from ..utils.tensors import host_device
 from .mesh import Sharding, _build, _placements, _require_group, from_global
+from .streaming import axis_size
 
 __all__ = ["init_distributed", "global_mesh", "channel_sharding",
-           "stream_sharding", "make_global_array", "allgather",
-           "process_count", "CHANNEL_AXES"]
+           "stream_sharding", "stream_block", "make_global_array",
+           "allgather", "process_count", "CHANNEL_AXES"]
 
 # the packets/channels batch axis shards over both cross-node and
 # within-node data parallelism
@@ -130,6 +133,40 @@ def channel_sharding(mesh: DeviceMesh) -> Sharding:
 def stream_sharding(mesh: DeviceMesh) -> Sharding:
     """Shard a stream's time axis over 'sp' (within a node): Shard(-1)."""
     return _placements(mesh, {"sp": -1})
+
+
+def stream_block(block_r, block_i, mesh: DeviceMesh,
+                 axis: str = "sp") -> tuple[DTensor, DTensor]:
+    """This rank's own time block of a stream as the stream DTensors that
+    ``receive_stream`` and ``receive_stream_frames`` take with ``mesh`` and
+    ``axis``: the deployment's entry, where each rank receives its block of
+    the capture and no rank holds the whole stream.
+
+    ``block_r``/``block_i`` are this rank's float32 (L,) planes, the
+    ``k``-th of the stream's equal blocks for the rank at ``k`` on
+    ``axis`` (replicated over the other mesh axes, as ``stream_sharding``
+    places a stream).  They are wrapped in place: no copy, no collective.
+    Raises ``InvalidArgumentError`` when the mesh has no ``axis``, or the
+    planes are not 1-D, of one length, on the mesh's device; the
+    receivers' halo gather raises it on every rank when the ranks' blocks
+    differ in length.
+    """
+    axis_size(mesh, axis)
+    if block_r.ndim != 1 or block_i.ndim != 1 \
+            or block_r.shape != block_i.shape:
+        raise InvalidArgumentError(
+            f"a stream block is two 1-D planes of one length; got shapes "
+            f"{tuple(block_r.shape)} and {tuple(block_i.shape)}")
+    for x in (block_r, block_i):
+        if x.device.type != mesh.device_type or (
+                x.device.type == "cuda"
+                and x.device.index != torch.cuda.current_device()):
+            raise InvalidArgumentError(
+                f"stream block on {x.device}: the mesh's ranks hold their "
+                f"blocks on their own {mesh.device_type} device")
+    placements = _placements(mesh, {axis: 0})
+    return tuple(DTensor.from_local(x, mesh, placements, run_check=False)
+                 for x in (block_r, block_i))
 
 
 # A DTensor from host-replicated data: every rank computes the full array

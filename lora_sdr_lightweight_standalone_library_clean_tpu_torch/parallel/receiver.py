@@ -43,11 +43,20 @@ block, reading up to ``plen - 1`` samples past it from the next ranks'
 leading ``min(plen, block)`` samples (so a block shorter than a packet
 works), and only the decoded fields go back into the K slots (an
 all_reduce over ``axis``): no rank gathers the stream or the packet
-bodies.  Every rank returns the one-device result, and the new state's
+bodies.  A rank's packets fill a fixed share of rows, ceil(K / ranks),
+as one device fills K, so no host waits for their number; a rank whose
+packets outgrow the share learns it once the device has passed the count
+(after the decoder's own waits, with no wait of its own) and extracts
+them again at their number (``COUNTS["rank_rows_refit"]``).  The halo
+gather carries each rank's block length: blocks of unequal length raise
+``InvalidArgumentError`` on every rank before a gather sized by them.
+Every rank returns the one-device result, and the new state's
 tail, gathered from the ranks that hold the last ``plen`` samples, is the
 same on every rank.  Three collectives a chunk, whose bytes
 ``COUNTS["collective_bytes.<halo|scan|results>"]`` counts
-(``utils/spans.py``).
+(``utils/spans.py``).  A deployment in which each rank receives its own
+block of the capture passes it through ``parallel/distributed.py::
+stream_block``, which wraps the block in place.
 
 **Stages.**  Under a ``torch.profiler`` session each call is the span
 ``lora.receive_stream`` (``lora.receive_stream_frames``) holding, in order,
@@ -56,7 +65,9 @@ same on every rank.  Three collectives a chunk, whose bytes
 ``max_packets``), ``lora.rx.extract`` (the packets' rows and their
 dechirp, one kernel on the card: ``ops/cuda_extract.py``), the
 demodulator's ``lora.rx.demod``, the decoder's ``lora.codec.*`` and
-``lora.rx.outputs`` (the masked records and the new state).
+``lora.rx.outputs`` (the masked records and the new state).  With a mesh,
+the three collectives are the spans ``lora.rx.collective.halo`` (in
+``extend``), ``.scan`` (in ``scan``) and ``.results`` (in ``outputs``).
 
 The JAX package counts samples in int32 (its offset wraps after 2^31
 samples, about 4.8 hours at 125 kHz); the port counts them in int64.
@@ -74,7 +85,7 @@ from ..models.modem import decode, demodulate_wide
 from ..models.tones import demodulate_tones
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
-from ..utils.spans import span, spanned
+from ..utils.spans import count, span, spanned
 from ..utils.tensors import host_device
 from ..ops.cuda_extract import extract_dechirp
 from ..ops.cuda_stream import stream_window_detect
@@ -214,18 +225,33 @@ def _extend(iq_r, iq_i, state, plen: int, mesh, axis: str):
     block = br.shape[-1]
     w = min(plen, block)
     edges = torch.stack([br[:w], bi[:w], br[block - w:], bi[block - w:]])
-    got = _all_gather(edges, mesh, axis, "halo")
+    # plen columns whatever the block, then the block length as two
+    # float32 words: every rank gathers as many bytes, and all of them
+    # raise on blocks of unequal length before the scan gather
+    n = torch.full((1,), block, dtype=torch.int64, device=br.device)
+    got = _all_gather(torch.cat([
+        torch.nn.functional.pad(edges, (0, plen - w)).flatten(),
+        n.view(torch.float32)]), mesh, axis, "halo")
+    blocks = torch.stack([g[-2:] for g in got]).view(torch.int64)
+    blocks = blocks.flatten().tolist()
+    if len(set(blocks)) != 1:
+        raise InvalidArgumentError(
+            f"the ranks of {axis!r} hold stream blocks of unequal length "
+            f"{blocks}: each rank's block is the stream's length over the "
+            f"ranks")
+    got = [g[:-2].view(4, plen)[:, :w] for g in got]
     me = mesh.get_local_rank(axis)
     ctx = following([g[:2] for g in got], me, plen)
     tail = torch.stack([state.tail_r, state.tail_i])
     new_tail = torch.cat([tail] + [g[2:] for g in got], dim=-1)[:, -plen:]
-    own = torch.stack([br, bi])
-    lo = plen + me * block
-    if me == 0:
-        own, lo = torch.cat([tail, own], dim=-1), 0
-    ext = torch.cat([own, ctx], dim=-1)
-    return (_Ext(ext[0], ext[1], lo, own.shape[-1]), new_tail[0].clone(),
-            new_tail[1].clone())
+    # [tail | block | the next ranks' samples] in one copy a plane; rank 0
+    # holds the tail, so no rank copies more than another before the scan
+    head = ([state.tail_r], [state.tail_i]) if me == 0 else ([], [])
+    ext_r = torch.cat(head[0] + [br, ctx[0]])
+    ext_i = torch.cat(head[1] + [bi, ctx[1]])
+    lo = 0 if me == 0 else plen + me * block
+    return (_Ext(ext_r, ext_i, lo, ext_r.shape[-1] - plen),
+            new_tail[0].clone(), new_tail[1].clone())
 
 
 def _gathered_scan(ext: _Ext, plen: int, params: LoraParams, mesh,
@@ -299,9 +325,11 @@ def _into_slots(fields: dict, rows, slots: int, mesh, axis: str) -> dict:
         words.append(b)
         layout.append((name, x.dtype, tuple(x.shape[1:]), nbytes,
                        b.shape[1]))
-    buf = torch.zeros(slots, sum(b.shape[1] for b in words),
+    # row ``slots`` takes the rows that fill no slot
+    buf = torch.zeros(slots + 1, sum(b.shape[1] for b in words),
                       dtype=torch.int32, device=rows.device)
     buf[rows] = torch.cat(words, dim=1)
+    buf = buf[:slots]
     all_reduce(buf, mesh, axis, "results")
     out, col = {}, 0
     for name, dtype, shape, nbytes, width in layout:
@@ -312,27 +340,63 @@ def _into_slots(fields: dict, rows, slots: int, mesh, axis: str) -> dict:
     return out
 
 
+def _read_later(x):
+    """A function that returns the int in ``x``: on the card ``x`` is
+    copied to pinned host memory at once, and read with no wait once the
+    device has passed the copy (waiting for it only if it has not)."""
+    if x.device.type != "cuda":
+        return lambda: int(x)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def read():
+        if not done.query():
+            done.synchronize()
+        return int(host)
+    return read
+
+
 def _demod_owned(ext: _Ext, starts_c, valid, plen: int, params: LoraParams,
                  wide: bool, mesh, axis: str, finish) -> dict:
     """Extract the packets this rank owns (every one on one device; with a
     mesh, the valid ones whose start lies in its block), dechirp and
     demodulate them, and decode them with ``finish(DemodResult) -> {field:
-    (k, ...) tensor}``.  Returns the fields in the K slots."""
-    with span("lora.rx.extract"):
-        if mesh is None:
-            rows, pos = None, starts_c
-        else:
-            mine = (valid & (starts_c >= ext.lo)
-                    & (starts_c < ext.lo + ext.owned))
-            rows = torch.nonzero(mine).flatten()
-            pos = starts_c[rows] - ext.lo
-        dr, di = extract_dechirp(ext.r, ext.i, pos, plen, params)
-    fields = finish((demodulate_wide if wide else demodulate_tones)(
-        dr, di, params))
+    (k, ...) tensor}``.  Returns the fields in the K slots.
+
+    With a mesh the valid starts ascend, so a rank's packets are
+    consecutive slots, from the number of valid starts before its block;
+    they fill ceil(K / ranks) rows (the rest read position 0 and go to no
+    slot), and again their own number of rows if that is more."""
+    def demod(cap):
+        with span("lora.rx.extract"):
+            if mesh is None:
+                slot, pos = None, starts_c
+            else:
+                j = torch.arange(cap, device=starts_c.device)
+                ok = j < n
+                slot = torch.where(ok, first + j, k)
+                pos = torch.where(
+                    ok, starts_c[slot.clamp(max=k - 1)] - ext.lo, 0)
+            dr, di = extract_dechirp(ext.r, ext.i, pos, plen, params)
+        return slot, finish((demodulate_wide if wide else demodulate_tones)(
+            dr, di, params))
+
     if mesh is None:
-        return fields
+        return demod(None)[1]
+    k = starts_c.shape[0]
+    first = (valid & (starts_c < ext.lo)).sum()
+    n = (valid & (starts_c >= ext.lo)
+         & (starts_c < ext.lo + ext.owned)).sum()
+    read_n = _read_later(n)
+    cap = -(-k // axis_size(mesh, axis))
+    slot, fields = demod(cap)
+    if read_n() > cap:
+        count("rank_rows_refit")
+        slot, fields = demod(read_n())
     with span("lora.rx.outputs"):
-        return _into_slots(fields, rows, starts_c.shape[0], mesh, axis)
+        return _into_slots(fields, slot, k, mesh, axis)
 
 
 def _receive(iq_r, iq_i, params: LoraParams, plen: int, state, mesh,

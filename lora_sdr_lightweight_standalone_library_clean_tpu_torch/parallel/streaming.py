@@ -36,7 +36,7 @@ from ..ops.chirp import downchirp_ri
 from ..ops.cuda_stream import stream_window_detect
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
-from ..utils.spans import count
+from ..utils.spans import count, span
 
 __all__ = ["StreamScan", "stream_scan", "find_sync_starts",
            "find_packet_starts"]
@@ -104,19 +104,24 @@ def _all_gather(x, mesh: DeviceMesh, axis: str, kind: str) -> list:
     trailing samples of this rank's block), ``scan`` (its windows'
     detections, gathered before the packet search), ``results`` (the
     decoded fields of the packets it owns).  An all_gather counts this
-    rank's contribution, an all_reduce its buffer."""
+    rank's contribution, an all_reduce its buffer.  The collective runs
+    in the span ``lora.rx.collective.<kind>``."""
     out = [torch.empty_like(x)
            for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(out, x.contiguous(), group=mesh.get_group(axis))
+    x = x.contiguous()
+    with span("lora.rx.collective." + kind):
+        dist.all_gather(out, x, group=mesh.get_group(axis))
     count("collective_bytes." + kind, x.numel() * x.element_size())
     return out
 
 
 def all_reduce(x, mesh: DeviceMesh, axis: str, kind: str) -> None:
     """In-place sum of ``x`` over the ranks of ``axis``; adds its bytes to
-    ``COUNTS["collective_bytes.<kind>"]`` (``_all_gather``)."""
+    ``COUNTS["collective_bytes.<kind>"]``, in the span
+    ``lora.rx.collective.<kind>`` (``_all_gather``)."""
     axis_size(mesh, axis)
-    dist.all_reduce(x, group=mesh.get_group(axis))
+    with span("lora.rx.collective." + kind):
+        dist.all_reduce(x, group=mesh.get_group(axis))
     count("collective_bytes." + kind, x.numel() * x.element_size())
 
 
@@ -141,8 +146,8 @@ def local_block(x, mesh: DeviceMesh, axis: str):
     if not isinstance(x, DTensor) or x.device_mesh != mesh:
         raise InvalidArgumentError(
             "with a mesh, the stream planes are DTensors on that mesh "
-            "(parallel/distributed.py::make_global_array with "
-            "stream_sharding)")
+            "(parallel/distributed.py::stream_block, or make_global_array "
+            "with stream_sharding)")
     want = [Shard(x.ndim - 1) if d == dim else Replicate()
             for d in range(mesh.ndim)]
     if list(x.placements) != want:

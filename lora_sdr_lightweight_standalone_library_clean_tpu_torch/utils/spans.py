@@ -23,14 +23,18 @@ hold ``lora.rx.extend``, ``.scan``, ``.select``, ``.extract``, the
 demodulator's ``lora.rx.demod`` (``.norm``, ``.estimate``, ``.detect``),
 the codec's ``lora.codec.*`` and ``lora.rx.outputs``; ``lora.tx.modulate``
 is the TX, and ``lora.kernel.<kernel>`` each hand-written kernel's launch
-path (its argument checks, tables, library load and the call).
+path (its argument checks, tables, library load and the call).  With a
+mesh, each collective of the sharded receiver is the span
+``lora.rx.collective.<halo|scan|results>``, inside ``lora.rx.extend``,
+``lora.rx.scan`` and ``lora.rx.outputs``; the one-device path opens none.
 
 ``COUNTS`` is the port's one registry of counters, host-side increments
 only (a counter that read a device value would be a synchronisation):
 ``launch.<kernel>`` for every launch of a hand-written kernel and
 ``collective_bytes.<halo|scan|results>`` for the bytes a rank puts into
-the sharded receiver's collectives.  Readers take differences; nothing
-resets it.
+the sharded receiver's collectives, and ``rank_rows_refit`` for each
+sharded call in which a rank's packets outgrew its share of the slots and
+were extracted again.  Readers take differences; nothing resets it.
 """
 from __future__ import annotations
 

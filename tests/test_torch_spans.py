@@ -279,8 +279,8 @@ def _free_port() -> int:
 
 def test_collective_bytes_on_a_one_rank_mesh():
     """The sp-sharded receiver on a one-rank gloo mesh counts the bytes of
-    its three collectives: the halo gather (4 planes of min(plen, block)
-    samples), the scan gather (3 words a window of [tail | chunk]) and the
+    its three collectives: the halo gather (4 planes of plen samples,
+    then the block length as two words), the scan gather (3 words a window of [tail | chunk]) and the
     results' all_reduce (each slot's fields in int32 words)."""
     sr, si, pay = _stream(False)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:"
@@ -302,6 +302,6 @@ def test_collective_bytes_on_a_one_rank_mesh():
     plen = receiver.packet_samples(P7, 2 * PAYLOAD)
     stride = P7.step // 4
     # payload 8 B, crc_ok, sync_word, cfo, time_offset: one word each
-    assert sent == {"halo": 4 * plen * 4,
+    assert sent == {"halo": 4 * plen * 4 + 8,
                     "scan": 3 * (plen + sr.shape[-1]) // stride * 4,
                     "results": 4 * (PAYLOAD + 4 * 4)}

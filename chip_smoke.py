@@ -90,8 +90,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    (58 symbols), and sf12/BW125/CR4-5, 256 x 32 B (38 symbols), 16 frames
    of each with a symbol moved beyond FEC reach, then 8192 sf7 frames of
    lengths 1-32 at ``max_payload_len`` 32: bytes, lengths, hdr_ok and
-   crc_ok exact, the corrupted ones failing, and the plain versions on the
-   card giving the same frames;
+   crc_ok exact, the corrupted ones failing, the framed decoder kernel
+   launched once a decode, and the plain versions on the card giving the
+   same frames;
 8S. framed streams through ``receive_stream_frames`` in one call, each of
    S7's length (71,303,168 samples), frames of lengths 1-32 at k*pitch +
    u_k (pitch the maximal frame plus 2 symbols), AWGN sigma 0.05: F7
@@ -99,8 +100,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    sf9/BW250/CR4-8/osr2, 896 frames, stride 128.  Every planted frame once
    at its start with exact bytes, length and verdicts, every other
    candidate failing its CRC, nothing dropped, #7 and the extraction
-   kernel against their plain versions on the path's call, the plain
-   versions on the card giving the same
+   kernel against their plain versions on the path's call, the framed
+   decoder kernel launched once, the plain versions on the card giving the
+   same
    frames, and F7's first 64 frames in chunks of 65,536 samples equal to
    the one call;
 7. timing (printed, not asserted): packets/s of every slice through the
@@ -115,6 +117,9 @@ Phases (one line each; any failure raises and the exit code is nonzero):
    never calls); the extraction kernel alone beside its plain version at
    the benchmark's GF7 and SP12 stream calls (12,660 rows of 44,800
    samples, 512 of 270,336, from 142.6 M samples), both equal to the bit;
+   the framed decoder kernel alone beside its plain version on the card at
+   a GF7 call's rows and an sf7-gateway-frames-sp4 rank's (12,660 and
+   25,320 rows of 348 symbols, 235 B bound), both equal to the bit;
 8W. every row of ``tests/vectors/sensitivity.csv`` through ``per_sweep``
    on the card, with the packets and dB tolerance ``tests/test_sweep.py``
    gives it: 5 SNR points, the SNR at 1 % PER within tolerance of the
@@ -176,13 +181,14 @@ import torch
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as lora
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models import (
-    modem, tones)
+    frame, modem, tones)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.modem import (
     TWO_PI, _full_rx_mult)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models.tones import (
     _tones_mult)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    codes, cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
+    codes, cuda_detect, cuda_extract, cuda_frame, cuda_rx, cuda_stream,
+    cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
@@ -240,7 +246,8 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEED = 7
 VEC_DIR = Path(__file__).resolve().parent / "tests" / "vectors"
 KERNELS = ["tx_dense", "tx_factored", "tx_osr", "rx_dense", "rx_hybrid",
-           "rx_osr", "stream_scan", "rotate_detect", "extract_dechirp"]
+           "rx_osr", "stream_scan", "rotate_detect", "extract_dechirp",
+           "decode_frame"]
 _COUNTED_FROM = {}      # COUNTS["launch.<kernel>"] at the last _reset_counts
 
 
@@ -256,13 +263,19 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device milliseconds per call of ``fn``, CUDA events."""
+def _time_ms(fn, iters: int = 10, warmup: int = 2,
+             hide_host: bool = False) -> float:
+    """Mean device milliseconds per call of ``fn``, CUDA events.  With
+    ``hide_host`` the card first spins for ~6 ms (``torch.cuda._sleep``),
+    so the host queues the calls while it spins and a kernel shorter than
+    its launch path is timed back to back, not at the host's pace."""
     for _ in range(warmup):
         fn()
     _sync()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -271,12 +284,13 @@ def _time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _abba(kernel_fn, plain_fn, iters: int = 10) -> tuple[float, float]:
+def _abba(kernel_fn, plain_fn, iters: int = 10,
+          hide_host: bool = False) -> tuple[float, float]:
     """Kernel and plain times in turns (plain, kernel, kernel, plain)."""
-    p1 = _time_ms(plain_fn, iters)
-    k1 = _time_ms(kernel_fn, iters)
-    k2 = _time_ms(kernel_fn, iters)
-    p2 = _time_ms(plain_fn, iters)
+    p1 = _time_ms(plain_fn, iters, hide_host=hide_host)
+    k1 = _time_ms(kernel_fn, iters, hide_host=hide_host)
+    k2 = _time_ms(kernel_fn, iters, hide_host=hide_host)
+    p2 = _time_ms(plain_fn, iters, hide_host=hide_host)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -683,25 +697,34 @@ def _full_rx(payload, p):
     return lora.demodulate(re, im, p)
 
 
+def _plain_decode_frame(symbols, params, max_payload_len, crc=True):
+    """The framed decoder kernel's plain version, in its return form."""
+    return tuple(frame.decode_frame_padded_ref(symbols, params,
+                                               max_payload_len, crc))
+
+
 @contextlib.contextmanager
 def _plain_versions():
     """Route the entry points through the kernels' plain versions (which
     count no launches), so the same pipeline runs without the kernels."""
     saved = (cuda_tx.tx_tone_synth, tones.rx_window_detect,
              modem.rx_window_detect, streaming.stream_window_detect,
-             tones.fused_rotate_detect, receiver.extract_dechirp)
+             tones.fused_rotate_detect, receiver.extract_dechirp,
+             cuda_frame.decode_frame)
     cuda_tx.tx_tone_synth = cuda_tx.tx_tone_synth_ref
     tones.rx_window_detect = cuda_rx.rx_window_detect_ref
     modem.rx_window_detect = cuda_rx.rx_window_detect_ref
     streaming.stream_window_detect = cuda_stream.stream_window_detect_ref
     tones.fused_rotate_detect = cuda_detect.fused_rotate_detect_ref
     receiver.extract_dechirp = cuda_extract.extract_dechirp_ref
+    cuda_frame.decode_frame = _plain_decode_frame
     try:
         yield
     finally:
         (cuda_tx.tx_tone_synth, tones.rx_window_detect,
          modem.rx_window_detect, streaming.stream_window_detect,
-         tones.fused_rotate_detect, receiver.extract_dechirp) = saved
+         tones.fused_rotate_detect, receiver.extract_dechirp,
+         cuda_frame.decode_frame) = saved
 
 
 @contextlib.contextmanager
@@ -1252,6 +1275,7 @@ def phase_framed(dev, rng) -> dict:
         seconds = time.perf_counter() - t0
         got = _counts()
         assert all(got[k] > 0 for k in kernels), got
+        assert got["decode_frame"] == 1, got
         assert tuple(res.symbols.shape) == (count, syms.shape[-1])
         assert bool((res.sync_word == 0x12).all()), "sync word"
         want_ok = np.ones(count, bool)
@@ -1271,7 +1295,7 @@ def phase_framed(dev, rng) -> dict:
             f"samples): bytes, lengths and hdr_ok exact, crc_ok False on "
             f"exactly the {CORRUPTED} corrupted; launches "
             f"{kernels[0]}={got[kernels[0]]} {kernels[1]}={got[kernels[1]]}; "
-            f"first run {seconds:.3f} s")
+            f"decode_frame={got['decode_frame']}; first run {seconds:.3f} s")
     p = out["sf7"]["p"]
     lengths = rng.integers(1, FRAME_MAX + 1, FRAMES_MIXED)
     syms, payload, _ = _frame_batch(p, lengths, dev, rng)
@@ -1281,6 +1305,7 @@ def phase_framed(dev, rng) -> dict:
     _sync()
     got = _counts()
     assert got["tx_dense"] > 0 and got["rx_dense"] > 0, got
+    assert got["decode_frame"] == 1, got
     assert torch.equal(fr.length.cpu(), torch.as_tensor(lengths,
                                                         dtype=torch.int32))
     assert bool(fr.hdr_ok.all()) and bool(fr.crc_ok.all())
@@ -1387,6 +1412,7 @@ def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
     launches = _counts()
     assert launches["stream_scan"] == 1 and launches[rx] > 0, launches
     assert launches["extract_dechirp"] == 1, launches
+    assert launches["decode_frame"] == 1, launches
     assert int(fr.n_dropped) == 0, int(fr.n_dropped)
     assert int(state.offset) == sr.shape[-1]
     v = fr.valid.cpu().numpy()
@@ -1431,7 +1457,8 @@ def phase_frame_stream(dev, rng, label, p, count: int, stride: int,
           f"which {extra.size} inside frames (all failing their CRC), 0 "
           f"dropped; launches stream_scan={launches['stream_scan']} "
           f"extract_dechirp={launches['extract_dechirp']} "
-          f"{rx}={launches[rx]}; stream_scan vs plain on the path's call: "
+          f"{rx}={launches[rx]} decode_frame={launches['decode_frame']}; "
+          f"stream_scan vs plain on the path's call: "
           f"bins equal on every clear window, max |d dB| = {scan_err:.3g}; "
           f"extract_dechirp = plain on the path's call ({ext_rows} rows) "
           f"to the bit; "
@@ -2140,12 +2167,42 @@ def _extract_bound(args, kw) -> tuple[float, str]:
     return _bound(out * 8 + ext_r.numel() * 8 + pos.numel() * 8, out * 6)
 
 
-def _kernel_alone(kernel, plain, call, bound) -> tuple:
+def _kernel_alone(kernel, plain, call, bound,
+                  hide_host: bool = False) -> tuple:
     """(ms, plain ms, bound ms, bound by) of one kernel call recorded on
     the main path, run again alone."""
     args, kw = call
-    return _abba(lambda: kernel(*args, **kw), lambda: plain(*args, **kw)) \
-        + bound(args, kw)
+    return _abba(lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                 hide_host=hide_host) + bound(args, kw)
+
+
+def _decode_call(dev, p, rows: int, seed: int):
+    """The framed decoder's rows in a stream call of the benchmark's frame
+    mix: a frame of 13-DECODE_MAX bytes every fourth row (a gateway call
+    provisions 4 rows a frame), random symbols in the others (candidates
+    inside frames, sentinel rows), each row the DECODE_MAX frame's
+    symbols: (args, keywords)."""
+    rng = np.random.default_rng(seed)
+    s_need = lora.max_frame_symbols(p, DECODE_MAX)
+    syms = torch.as_tensor(rng.integers(0, p.n, (rows, s_need)).astype(
+        np.int32), device=dev)
+    lengths = rng.integers(13, DECODE_MAX + 1, rows // 4)
+    for n in np.unique(lengths):
+        at = np.nonzero(lengths == n)[0]
+        pay = torch.as_tensor(rng.integers(0, 256, (at.size, n)).astype(
+            np.uint8), device=dev)
+        s = lora.encode_frame(pay, p)
+        syms[torch.as_tensor(4 * at, device=dev), :s.shape[-1]] = s
+    return (syms, p, DECODE_MAX), {}
+
+
+def _decode_bound(args, kw) -> tuple[float, str]:
+    """The framed decoder: the symbol rows read once (4 B a symbol) and
+    the outputs written once (the payload, 4 B length, 4 B n_err, 1 B
+    each verdict); its integer operations are not counted."""
+    syms, max_len = args[0], args[2]
+    rows = syms.numel() // syms.shape[-1]
+    return _bound(syms.numel() * 4 + rows * (max_len + 10), 0)
 
 
 def phase_timing(slices, full_rx, smi, streams, route, framed,
@@ -2287,6 +2344,24 @@ def phase_timing(slices, full_rx, smi, streams, route, framed,
                      f"rows written and stream read once)")
         del call
         torch.cuda.empty_cache()
+    for label, rows in DECODE_AT:
+        call = _decode_call(torch.device("cuda", 0), DECODE_P, rows, SEED)
+        got = cuda_frame.decode_frame(*call[0])
+        want = _plain_decode_frame(*call[0])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), label
+        del got, want
+        times["decode_frame", label] = _kernel_alone(
+            cuda_frame.decode_frame, _plain_decode_frame, call, _decode_bound,
+            hide_host=True)
+        ms, plain_ms, bound_ms, bound_by = times["decode_frame", label]
+        lines.append(f"decode_frame at {label} ({rows:,} rows of "
+                     f"{call[0][0].shape[-1]} symbols, {DECODE_MAX} B bound; "
+                     f"= plain to the bit) {ms:.4f} ms vs plain "
+                     f"{plain_ms:.4f} ms (bound {bound_ms:.4f} ms by "
+                     f"{bound_by}; "
+                     f"{bound_ms / ms * MEM_BYTES_PER_S / 1e12:.3f} TB/s of "
+                     f"rows read and outputs written once)")
+        del call
     print(f"phase 7 timing [{smi}]: " + " | ".join(lines), flush=True)
     return times, cufft
 
@@ -2300,6 +2375,11 @@ EXTRACT_AT = (("GF7", lora.LoraParams(sf=7, bw=125000, cr="4/5"),
                142_606_336, 350, 3165, 8_767, 12_660),
               ("SP12", lora.LoraParams(sf=12, bw=125000, cr="4/5"),
                142_606_336, 66, 512, 512, 512))
+# Where phase 7 times the framed decoder kernel: a GF7 call's rows and an
+# sf7-gateway-frames-sp4 rank's, at the benchmark's profile and bound.
+DECODE_P = lora.LoraParams(sf=7, bw=125000, cr="4/5")
+DECODE_MAX = 235
+DECODE_AT = (("GF7", 12_660), ("sp4", 25_320))
 # Where phase 7 times torch.fft.fft beside a kernel (the cuFFT yardstick).
 CUFFT_AT = {("rx_hybrid", "sf12"), ("rx_hybrid", "A"), ("stream_scan", "S7"),
             ("stream_scan", "S12")}
@@ -2318,6 +2398,7 @@ KERNEL_LINE = (
     ("stream_scan", "S7", "ops/pallas_stream.py:107"),
     ("rotate_detect", "sf7", "ops/pallas_detect.py:41"),
     ("extract_dechirp", "GF7", None),
+    ("decode_frame", "GF7", None),
 )
 # (label, params, packets, power gate dB).  At the default stride step/4 a
 # start midway between two windows leaves its second sync window (which
@@ -2405,7 +2486,8 @@ def run_phases(dev, rng, smi) -> list[dict]:
             entry["cufft_ms"] = cufft[name, label]
         for other, at, key in (("rx_hybrid", "A", "at_16384"),
                                ("stream_scan", "S12", "at_4096"),
-                               ("extract_dechirp", "SP12", "at_SP12")):
+                               ("extract_dechirp", "SP12", "at_SP12"),
+                               ("decode_frame", "sp4", "at_sp4")):
             if name == other:
                 ms, plain_ms, bound_ms, bound_by = times[name, at]
                 entry[key] = {"ms": ms, "plain_ms": plain_ms,

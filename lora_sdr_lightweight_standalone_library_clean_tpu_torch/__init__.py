@@ -20,7 +20,8 @@ stream and returns the packets in it, and ``demodulate_tones``/``demodulate``
 take the JAX package's ``backend`` values (``"pallas"`` is the two-stage
 rotate-detect route).  The SX1272 framed codec (``models/frame.py``:
 explicit header, whitening, FEC at the profile's coding rate, the diagonal
-interleave, Gray) rides the same kernels, and ``receive_stream_frames``
+interleave, Gray) rides the same kernels, its padded decoder one kernel of
+its own on the card, and ``receive_stream_frames``
 receives streams of frames of mixed lengths.  ``ops/channel.py`` and
 ``models/sweep.py`` give the AWGN BER/PER sweep, ``models/lorawan.py`` the
 LoRaWAN MAC (host AES/CMAC through ``utils/native.py``), and ``runners/``

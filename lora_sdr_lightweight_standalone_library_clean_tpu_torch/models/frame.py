@@ -23,10 +23,13 @@ this is the frame the JAX package builds from them:
  * **CRC**: the 2-byte little-endian SX1272 CRC of the payload, appended
    before whitening when ``crc`` is on (LoRaCodes.hpp:92-105).
 
-Plain torch on the tensors' device, batched over leading axes.
-``encode_frame``/``decode_frame_padded`` have static (maximum) sizes; the
-payload length enters only through masks and gathers, so one call serves
-every length up to the bound: that gives the streaming receiver
+Plain torch on the tensors' device, batched over leading axes, but for
+``decode_frame_padded`` on the card: there it is one launch of the
+hand-written kernel ``csrc/decode_frame.cu`` (``ops/cuda_frame.py``),
+bit-equal to the plain chain, ``decode_frame_padded_ref``, which the CPU
+runs.  ``encode_frame``/``decode_frame_padded`` have static (maximum)
+sizes; the payload length enters only through masks and gathers, so one
+call serves every length up to the bound: that gives the streaming receiver
 (``parallel/receiver.py::receive_stream_frames``) its header-driven
 variable-length recovery.  ``decode_frame`` is the one host-synchronising
 convenience, as in the JAX package.  Symbols are int32 (the JAX package's
@@ -44,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import codes
+from ..ops import codes, cuda_frame
 from ..utils.config import LoraParams
 from ..utils.errors import InvalidArgumentError
 from ..utils.spans import spanned
@@ -54,7 +57,8 @@ from .modem import _crc_position_tables, _xor_reduce_last
 __all__ = [
     "FrameHeader", "FrameResult",
     "frame_symbols", "max_frame_symbols",
-    "encode_frame", "decode_header", "decode_frame_padded", "decode_frame",
+    "encode_frame", "decode_header", "decode_frame_padded",
+    "decode_frame_padded_ref", "decode_frame",
     "header_checksum_batch", "crc_sx1272_at",
 ]
 
@@ -171,6 +175,11 @@ def _hdr_parity() -> np.ndarray:
     return codes._HDR_PARITY.astype(np.int32)
 
 
+def _hdr_weights() -> np.ndarray:
+    """The parity rows' place values: row r is checksum bit 4 - r."""
+    return np.array([16, 8, 4, 2, 1], dtype=np.int32)
+
+
 def header_checksum_batch(h0, h1):
     """5-bit explicit-header checksum over batched (h0, h1) byte values:
     the parity matrix's rows as integer XOR sums (int32 out)."""
@@ -185,7 +194,7 @@ def header_checksum_batch(h0, h1):
                       (h1[..., None] >> shifts1) & 1], dim=-1)   # (..., 12)
     par = device_table(_hdr_parity, device=dev)                  # (5, 12)
     out = (bits[..., None, :] * par).sum(dim=-1, dtype=torch.int32) & 1
-    weights = torch.tensor([16, 8, 4, 2, 1], dtype=torch.int32, device=dev)
+    weights = device_table(_hdr_weights, device=dev)
     return (out * weights).sum(dim=-1, dtype=torch.int32)
 
 
@@ -352,7 +361,22 @@ def decode_frame_padded(symbols, params: LoraParams,
     ``symbols`` must provide at least ``max_frame_symbols`` entries; entries
     past the actual frame are ignored.  The profile's coding rate is the
     static truth: a header advertising a different rate fails ``hdr_ok``.
+    On the card it is one launch of ``csrc/decode_frame.cu``
+    (``ops/cuda_frame.py``), with no host wait; on the CPU it runs
+    ``decode_frame_padded_ref``, whose outputs the kernel's equal bit for
+    bit.
     """
+    s = int_tensor(symbols, torch.int32)
+    if s.is_cuda:
+        return FrameResult(*cuda_frame.decode_frame(s, params,
+                                                    max_payload_len, crc))
+    return decode_frame_padded_ref(s, params, max_payload_len, crc)
+
+
+def decode_frame_padded_ref(symbols, params: LoraParams,
+                            max_payload_len: int,
+                            crc: bool = True) -> FrameResult:
+    """Plain PyTorch version of ``decode_frame_padded`` (any device)."""
     sf, rdd = params.sf, params.rdd
     _, max_blocks, s_need = _frame_geometry(params, max_payload_len, crc)
     s = int_tensor(symbols, torch.int32)

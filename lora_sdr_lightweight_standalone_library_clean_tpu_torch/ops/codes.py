@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tensors import device_table
+
 __all__ = [
     "HEADER_RDD",
     "N_HEADER_SYMBOLS",
@@ -484,12 +486,30 @@ def check_parity64(codewords, return_flags: bool = False):
 # torch run the same formulation (no scatter in either direction).
 # ---------------------------------------------------------------------------
 
-def _grid(a: np.ndarray, like, dtype=torch.int64):
-    """A static index (int64) or shift (int32) grid as numpy (host input)
-    or as a tensor on the input's device."""
+def _interleave_grids(ppm: int, nb: int):
+    """(src, bit, cwi) of the interleaver: the (nb, ppm) gather map (int64)
+    and the bit and codeword shift grids (int32)."""
+    bit = np.arange(nb, dtype=np.int32)[:, None]          # (nb, 1)
+    cwi = np.arange(ppm, dtype=np.int32)[None, :]         # (1, ppm)
+    src = ((cwi + bit) % ppm).astype(np.int64)            # (nb, ppm)
+    return src, bit, cwi
+
+
+def _deinterleave_grids(ppm: int, nb: int):
+    """(pos, bit) of the deinterleaver: the (ppm, nb) source symbol-bit
+    positions and the bit shift grid, int32."""
+    d = np.arange(ppm, dtype=np.int32)[:, None]           # (ppm, 1)
+    bit = np.arange(nb, dtype=np.int32)[None, :]          # (1, nb)
+    return (d - bit) % ppm, bit
+
+
+def _grids(make, ppm: int, nb: int, like):
+    """``make(ppm, nb)`` as numpy (host input) or as tensors cached on the
+    input's device (``device_table``): a call on the card copies no grid
+    from the host after the first."""
     if isinstance(like, torch.Tensor):
-        return torch.as_tensor(a, dtype=dtype, device=like.device)
-    return a
+        return device_table(make, ppm, nb, device=like.device)
+    return make(ppm, nb)
 
 
 def diagonal_interleave(codewords, ppm: int, rdd: int):
@@ -504,14 +524,11 @@ def diagonal_interleave(codewords, ppm: int, rdd: int):
     nblk = cw.shape[-1] // ppm
     nb = 4 + rdd
     cw = cw[..., : nblk * ppm].reshape(cw.shape[:-1] + (nblk, ppm))
-    bit = np.arange(nb)[:, None]          # (nb, 1)
-    cwi = np.arange(ppm)[None, :]         # (1, ppm)
-    src = (cwi + bit) % ppm               # (nb, ppm) static gather map
-    g = cw[..., _grid(src, cw)]           # (..., nblk, nb, ppm)
+    src, bit, cwi = _grids(_interleave_grids, ppm, nb, cw)
+    g = cw[..., src]                      # (..., nblk, nb, ppm)
     if isinstance(cw, torch.Tensor):
-        b = (g >> _grid(bit, cw, torch.int32)) & 1
-        sym = (b << _grid(cwi, cw, torch.int32)).sum(dim=-1,
-                                                     dtype=torch.int32)
+        b = (g >> bit) & 1
+        sym = (b << cwi).sum(dim=-1, dtype=torch.int32)
         sym = sym & 0xFFFF
     else:
         b = (g >> bit[None].astype(np.uint16)) & np.uint16(1)
@@ -531,14 +548,11 @@ def diagonal_deinterleave(symbols, ppm: int, rdd: int):
     nb = 4 + rdd
     nblk = sym.shape[-1] // nb
     sym = sym[..., : nblk * nb].reshape(sym.shape[:-1] + (nblk, nb))
-    d = np.arange(ppm)[:, None]           # (ppm, 1) destination codeword
-    bit = np.arange(nb)[None, :]          # (1, nb)
-    pos = (d - bit) % ppm                 # (ppm, nb) source symbol-bit position
+    pos, bit = _grids(_deinterleave_grids, ppm, nb, sym)
     s = sym[..., None, :]                 # (..., nblk, 1, nb)
     if isinstance(sym, torch.Tensor):
-        b = (s >> _grid(pos, sym, torch.int32)) & 1
-        cw = (b << _grid(bit, sym, torch.int32)).sum(dim=-1,
-                                                     dtype=torch.int32)
+        b = (s >> pos) & 1
+        cw = (b << bit).sum(dim=-1, dtype=torch.int32)
         cw = cw & 0xFF
     else:
         b = (s >> pos[None].astype(np.uint16)) & np.uint16(1)

@@ -80,6 +80,11 @@ _SIGNATURES = {
     "lora_extract_dechirp": [_c_void_p, _c_void_p, ctypes.c_longlong,
                              _c_void_p, _c_int, _c_int, _c_void_p, _c_void_p,
                              _c_int, _c_void_p, _c_void_p, _c_void_p],
+    # sym, k, s, sf, rdd, max_len, crc, body_cw, dec84, err84, decp, errp,
+    # keys, crc_tab, vseq, vseq_len, payload, length, hdr_ok, crc_ok, n_err,
+    # stream
+    "lora_decode_frame": [_c_void_p] + [_c_int] * 7 + [_c_void_p] * 7
+                         + [_c_int] + [_c_void_p] * 6,
 }
 
 # Filled by load(): library path, build seconds (0.0 when it was cached)

@@ -4,9 +4,10 @@ Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  It covers every kernel: the TX kernels at osr 1
 and osr > 1, the RX kernels on osr-1, decimated osr > 1, halo and wide
 windows up to 16384 points, the streaming scan (#7), the rotate-detect
-kernel (#8) and the streaming receivers' extraction kernel, which must
-equal its plain version to the bit.  The file imports neither jax nor the JAX
-package, so it also runs where only PyTorch is installed:
+kernel (#8), and the streaming receivers' extraction kernel and the framed
+decoder kernel, which must equal their plain versions to the bit.  The
+file imports neither jax nor the JAX package, so it also runs where only
+PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -25,7 +26,7 @@ import torch
 
 import lora_sdr_lightweight_standalone_library_clean_tpu_torch as T
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
+    cuda_detect, cuda_extract, cuda_frame, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops.chirp import (
     _with_sync_prelude)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils.spans import (
@@ -808,6 +809,175 @@ def test_receive_stream_frames_on_card_matches_cpu(cuda_device):
     assert cpu.start.numpy()[good].tolist() == offsets
     for k, pay in zip(np.nonzero(good)[0], pays):
         assert cpu.payload[k, :len(pay)].tolist() == pay.tolist()
+
+
+CRS = {1: "4/5", 2: "4/6", 3: "4/7", 4: "4/8"}
+
+
+def _frame_rows(p, max_len, crc, rng, count=64):
+    """int32 (count + 64, s_need) CPU rows for the framed decoder: frames
+    of random lengths up to the bound, frames with a body symbol moved by
+    n/2 after their CRC was made, headers with another coding rate or the
+    other CRC flag, length 0, lengths past the bound (cut to the row), and
+    random int32 symbols in [0, 2^16)."""
+    s_need = T.max_frame_symbols(p, max_len, crc)
+
+    def frames(q, lengths, with_crc=crc):
+        rows = []
+        for n in lengths:
+            pay = torch.as_tensor(rng.integers(0, 256, (1, int(n))).astype(
+                np.uint8))
+            f = T.encode_frame(pay, q, crc=with_crc)[0].numpy()[:s_need]
+            rows.append(np.concatenate(
+                [f, rng.integers(0, p.n, s_need - f.shape[0])]))
+        return rows
+    real = frames(p, rng.integers(1, max_len + 1, count))
+    moved = frames(p, rng.integers(1, max_len + 1, 16))
+    for r in moved:
+        if s_need > 8:
+            r[rng.integers(8, s_need)] ^= p.n // 2
+    other = T.LoraParams(sf=p.sf, cr=CRS[p.rdd % 4 + 1])
+    rows = (real + moved + frames(other, rng.integers(1, max_len + 1, 8))
+            + frames(p, rng.integers(1, max_len + 1, 4), not crc)
+            + frames(p, [0] * 4)
+            + frames(p, rng.integers(min(max_len + 1, 255), 256, 8))
+            + [rng.integers(0, 2 ** 16, s_need) for _ in range(24)])
+    return torch.as_tensor(np.stack(rows).astype(np.int32))
+
+
+def _same_result(got, want):
+    for f in want._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        assert torch.equal(g.cpu(), w), f
+
+
+@pytest.mark.parametrize("crc", [True, False])
+@pytest.mark.parametrize("rdd", [1, 2, 3, 4])
+@pytest.mark.parametrize("sf", [7, 8, 9, 10, 11, 12])
+def test_decode_frame_kernel_equals_plain_on_card(cuda_device, sf, rdd, crc):
+    """The framed-decoder kernel gives the CPU plain path's payload, length,
+    hdr_ok, crc_ok and n_err to the bit on real, corrupted, wrong-rate,
+    empty, oversize and random rows, at every bound of 1, 12, 51, 235 and
+    255 bytes; one launch a call."""
+    p = T.LoraParams(sf=sf, cr=CRS[rdd])
+    rng = np.random.default_rng(sf * 100 + rdd * 10 + crc)
+    for max_len in (1, 12, 51, 235, 255):
+        rows = _frame_rows(p, max_len, crc, rng)
+        want = T.decode_frame_padded(rows, p, max_len, crc)
+        before = COUNTS["launch.decode_frame"]
+        got = T.decode_frame_padded(rows.to(cuda_device), p, max_len, crc)
+        assert COUNTS["launch.decode_frame"] == before + 1
+        _same_result(got, want)
+        assert want.crc_ok.any() and (~want.hdr_ok).any()
+
+
+@pytest.mark.parametrize("k", [0, 1, 33, 12660])
+def test_decode_frame_kernel_row_counts_on_card(cuda_device, k):
+    """K rows at GF7's profile and bound (sf7, CR 4/5, 235 B): the CPU
+    plain path's outputs; K = 0 launches nothing and returns empty
+    outputs on the card."""
+    p = T.LoraParams(sf=7, cr="4/5")
+    rng = np.random.default_rng(k)
+    rows = _frame_rows(p, 235, True, rng)
+    rows = rows[rng.integers(0, rows.shape[0], k)]
+    want = T.decode_frame_padded(rows, p, 235)
+    before = COUNTS["launch.decode_frame"]
+    got = T.decode_frame_padded(rows.to(cuda_device), p, 235)
+    assert COUNTS["launch.decode_frame"] == before + (1 if k else 0)
+    assert got.payload.device == rows.to(cuda_device).device
+    _same_result(got, want)
+
+
+def test_decode_frame_kernel_batch_axes_and_slices_on_card(cuda_device):
+    """Leading batch axes are flattened and restored, a non-contiguous
+    slice of wider rows (``decode_frame``'s ``s[..., :need]``) and rows
+    wider than the bound decode as the CPU plain path decodes them, and
+    ``decode_frame`` sizes one frame to its header on the card."""
+    p = T.LoraParams(sf=8, cr="4/6")
+    rng = np.random.default_rng(8)
+    rows = _frame_rows(p, 51, True, rng, count=56)
+    wide = torch.cat([rows, torch.as_tensor(
+        rng.integers(0, p.n, (120, 13)).astype(np.int32))], dim=1)
+    for x in (rows.reshape(4, 30, -1), rows.reshape(2, 3, 20, -1), wide,
+              wide.reshape(6, 20, -1)):
+        _same_result(T.decode_frame_padded(x.to(cuda_device), p, 51),
+                     T.decode_frame_padded(x, p, 51))
+    cut = wide.to(cuda_device)[:, :rows.shape[1]]
+    assert not cut.is_contiguous()
+    _same_result(T.decode_frame_padded(cut, p, 51),
+                 T.decode_frame_padded(rows, p, 51))
+    pay = torch.as_tensor(rng.integers(0, 256, (1, 17)).astype(np.uint8))
+    s = T.encode_frame(pay, p)[0]
+    s = torch.cat([s, torch.zeros(9, dtype=s.dtype)])
+    got = T.decode_frame(s.to(cuda_device), p)
+    _same_result(got, T.decode_frame(s, p))
+    assert got.payload.cpu().tolist() == pay[0].tolist()
+
+
+def test_decode_frame_kernel_rejects_what_it_does_not_take(cuda_device):
+    """A CPU tensor, another dtype, no axis, too few symbols, a bound out of
+    range and sf below 7 raise InvalidArgumentError at the kernel's
+    wrapper."""
+    p = T.LoraParams(sf=7)
+    s_need = T.max_frame_symbols(p, 12)
+    z = torch.zeros(4, s_need, dtype=torch.int32, device=cuda_device)
+    bad = {
+        "cpu": (z.cpu(), p, 12),
+        "dtype": (z.long(), p, 12),
+        "scalar": (z[0, 0], p, 12),
+        "short": (z[:, :-1], p, 12),
+        "negative bound": (z, p, -1),
+        "bound": (z, p, cuda_frame.MAX_LEN + 1),
+        "bool bound": (z, p, True),
+        "sf": (z, T.LoraParams(sf=6), 12),
+    }
+    for what, args in bad.items():
+        try:
+            cuda_frame.decode_frame(*args)
+        except T.errors.InvalidArgumentError:
+            continue
+        pytest.fail(f"{what}: no InvalidArgumentError")
+
+
+def test_receive_stream_frames_waits_for_nothing_on_card(cuda_device):
+    """A warmed one-card ``receive_stream_frames`` call on GF7-like input
+    (sf7, CR 4/5, frames of 13-235 B in noise, stride 32, gate 4 dB)
+    makes no synchronising call: under ``set_sync_debug_mode("error")``
+    it raises nothing, launches the decoder kernel once, and recovers the
+    frames the CPU plain path recovers."""
+    p = T.LoraParams(sf=7, cr="4/5")
+    rng = np.random.default_rng(7)
+    plen = T.packet_samples(p, T.max_frame_symbols(p, 235))
+    pitch = plen + 2 * p.step
+    frames = 6
+    sr = rng.standard_normal(frames * pitch + 4096).astype(np.float32) * .05
+    si = rng.standard_normal(sr.shape[0]).astype(np.float32) * .05
+    for k in range(frames):
+        pay = rng.integers(0, 256, rng.integers(13, 236)).astype(np.uint8)
+        re, im = T.modulate(T.encode_frame(torch.as_tensor(pay)[None], p), p)
+        g = k * pitch + int(rng.integers(0, p.step))
+        sr[g:g + re.shape[-1]] += re[0].numpy()
+        si[g:g + re.shape[-1]] += im[0].numpy()
+    kw = dict(max_payload_len=235, max_packets=4 * frames, stride=32,
+              power_gate_db=4.0)
+    r, i = (torch.as_tensor(x, device=cuda_device) for x in (sr, si))
+    T.receive_stream_frames(r, i, p, **kw)          # tables, library
+    torch.cuda.synchronize()
+    before = COUNTS["launch.decode_frame"]
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu, _ = T.receive_stream_frames(r, i, p, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+    assert COUNTS["launch.decode_frame"] == before + 1
+    cpu, _ = T.receive_stream_frames(torch.as_tensor(sr),
+                                     torch.as_tensor(si), p, **kw)
+    for f in ("payload", "length", "hdr_ok", "crc_ok", "valid", "start",
+              "n_err", "n_candidates", "n_dropped"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert int((cpu.valid & cpu.crc_ok).sum()) == frames
 
 
 def _tf32_run(cuda_device):

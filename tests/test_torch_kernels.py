@@ -278,9 +278,10 @@ def test_nvcc_command_targets_sm90a():
     """One compile per source for sm_90a, then one shared-library link."""
     srcs = sorted(s.name for s in cuda_build._sources()
                   if s.suffix == ".cu")
-    assert srcs == ["extract_dechirp.cu", "rotate_detect.cu", "rx_dense.cu",
-                    "rx_hybrid.cu", "rx_osr.cu", "stream_scan.cu",
-                    "tx_dense.cu", "tx_factored.cu", "tx_osr.cu"]
+    assert srcs == ["decode_frame.cu", "extract_dechirp.cu",
+                    "rotate_detect.cu", "rx_dense.cu", "rx_hybrid.cu",
+                    "rx_osr.cu", "stream_scan.cu", "tx_dense.cu",
+                    "tx_factored.cu", "tx_osr.cu"]
     cmd = cuda_build.compile_command(Path("csrc/rx_hybrid.cu"),
                                      Path("rx_hybrid.o"))
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
@@ -344,6 +345,12 @@ def test_wrappers_name_the_tpu_kernel_they_replace():
         text = (root / src).read_text()
         assert tpu in text, src
         assert "H100" in text, src
+    # the port's own kernels say that they replace none, and their bound
+    for src, wrapper in (("csrc/extract_dechirp.cu", "ops/cuda_extract.py"),
+                         ("csrc/decode_frame.cu", "ops/cuda_frame.py")):
+        text = (root / src).read_text()
+        assert "no TPU kernel" in text and "H100" in text, src
+        assert "Replaces no TPU kernel" in (root / wrapper).read_text()
     # each launch path counts its kernel in the one registry
     # (COUNTS["launch.<kernel>"]) and keeps no counter of its own
     for mod, kernels in (("ops/cuda_tx.py", ("tx_dense", "tx_factored",
@@ -351,7 +358,9 @@ def test_wrappers_name_the_tpu_kernel_they_replace():
                          ("ops/cuda_rx.py", ("rx_dense", "rx_hybrid",
                                              "rx_osr")),
                          ("ops/cuda_stream.py", ("stream_scan",)),
-                         ("ops/cuda_detect.py", ("rotate_detect",))):
+                         ("ops/cuda_detect.py", ("rotate_detect",)),
+                         ("ops/cuda_extract.py", ("extract_dechirp",)),
+                         ("ops/cuda_frame.py", ("decode_frame",))):
         tree = ast.parse((root / mod).read_text())
         consts = {node.value for node in ast.walk(tree)
                   if isinstance(node, ast.Constant)

@@ -10,7 +10,8 @@ launches of the hand-written kernels (none on the CPU, where every route
 runs its plain version) and the bytes of the sharded receiver's
 collectives, checked here on a one-rank gloo mesh.  On a card (marked
 ``cuda``, skipped here) the extraction kernel's span opens inside
-``lora.rx.extract`` once a stream call.  Streams are made by the port
+``lora.rx.extract`` and the framed decoder kernel's inside
+``lora.codec.decode_frame``, once a stream call.  Streams are made by the port
 itself from fixed seeds; the file imports neither jax nor the JAX
 package.
 """
@@ -28,7 +29,7 @@ import lora_sdr_lightweight_standalone_library_clean_tpu_torch as T
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.models import (
     tones)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.ops import (
-    cuda_detect, cuda_extract, cuda_rx, cuda_stream, cuda_tx)
+    cuda_detect, cuda_extract, cuda_frame, cuda_rx, cuda_stream, cuda_tx)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.parallel import (
     distributed as D, mesh as M, receiver)
 from lora_sdr_lightweight_standalone_library_clean_tpu_torch.utils import (
@@ -215,6 +216,9 @@ def _route_calls():
         "extract_dechirp": lambda: cuda_extract.extract_dechirp(
             torch.zeros(8 * P7.step), torch.zeros(8 * P7.step),
             torch.tensor([0, 3]), 4 * P7.step, P7),
+        "decode_frame": lambda: T.decode_frame_padded(
+            torch.zeros(2, T.max_frame_symbols(P7, 4), dtype=torch.int32),
+            P7, 4),
     }
 
 
@@ -234,7 +238,7 @@ def test_launch_paths_count_in_the_registry():
     """The one registry: no kernel wrapper keeps a counter of its own, and
     ``count`` adds to ``COUNTS``."""
     for mod in (cuda_tx, cuda_rx, cuda_stream, cuda_detect, cuda_extract,
-                tones):
+                cuda_frame, tones):
         assert not [n for n in vars(mod) if n.endswith("LAUNCHES")], mod
     assert not hasattr(T.streaming, "COLLECTIVE_BYTES")
     before = spans.COUNTS["launch.test_only"]
@@ -268,6 +272,32 @@ def test_extraction_kernel_opens_inside_extract_on_card(framed):
     kernel = [s for s in got if s[0] == "lora.kernel.extract_dechirp"]
     assert len(extract) == 2 and len(kernel) == 2
     for outer, inner in zip(extract, kernel):
+        assert _inside(inner, outer), (inner, outer)
+
+
+@pytest.mark.cuda
+def test_decoder_kernel_opens_inside_the_decoder_span_on_card():
+    """On the card each framed stream call launches the framed decoder
+    kernel once: one ``lora.kernel.decode_frame`` span inside each
+    ``lora.codec.decode_frame``, and ``COUNTS["launch.decode_frame"]`` one
+    higher a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sr, si, pay = _stream(True)
+    sr, si = sr.cuda(), si.cuda()
+    half = sr.shape[-1] // 2
+    before = spans.COUNTS["launch.decode_frame"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, state = _receive(True, sr[:half], si[:half])
+        out2, _ = _receive(True, sr[half:], si[half:], state)
+    assert spans.COUNTS["launch.decode_frame"] == before + 2
+    assert torch.equal(out.payload[:1].cpu(), pay[:1])
+    assert torch.equal(out2.payload[:1].cpu(), pay[1:])
+    got = _spans(prof)
+    codec = [s for s in got if s[0] == "lora.codec.decode_frame"]
+    kernel = [s for s in got if s[0] == "lora.kernel.decode_frame"]
+    assert len(codec) == 2 and len(kernel) == 2
+    for outer, inner in zip(codec, kernel):
         assert _inside(inner, outer), (inner, outer)
 
 
